@@ -13,11 +13,17 @@ Phases, each fatal on failure:
               -> ``Darth.search`` at 0.80 / 0.90 / 0.95. The kernels' launch
               counts are zeroed just before and read just after; each kernel
               must have run. Each mean recall@10 (against exact ground truth)
-              must reach its target - 0.03.
+              must reach its target - 0.03. Then one fit batch's step log
+              is timed, and run again under torch.profiler for the
+              device's busy time by kernel (its idle share).
 3. kernels:   each kernel against its plain PyTorch version on the main
               path's own tensors and shapes (f32, and int8 codes for both
               distance kernels), with times of the kernel, the plain version
               and, for l2_topk, one PyTorch call computing the same function.
+              bucket_probe is also timed where the main path runs it: the
+              first step of Darth.search (1000 queries) and a whole fit
+              batch (256 queries through every probe rank), each beside
+              its byte bound.
 
 It imports nothing of JAX or of the ``repro`` package. Output: a JSON line
 of per-kernel results, the card's name and power limit, and last
@@ -28,6 +34,7 @@ repository around it, it exits non-zero and prints no result.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +64,39 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled(fn):
+    """(wall s, {kernel: device ms}) of one fn() under torch.profiler, the
+    wall time taken in the same run. The dict is empty where the profiler
+    recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    by = {}
+    for e in prof.key_averages():  # the device's own events only
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if "CUDA" in str(e.device_type) and us > 0:
+            by[e.key] = us / 1e3
+    return wall, by
+
+
+def probe_kernels_ms(by, calls):
+    """Device ms per call of each kernel of a bucket_probe call, by short
+    name (probe_tile_kernel and probe_merge_kernel)."""
+    out = {}
+    for key, ms in by.items():
+        m = re.search(r"(\w*probe\w*_kernel)", key)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + ms / calls
+    return out
 
 
 def topk_agreement(d_k, i_k, d_r, i_r, tol):
@@ -90,7 +130,7 @@ def main() -> int:
         return fail("no CUDA device")
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
-        from repro_torch.core import api, engines
+        from repro_torch.core import api, engines, training
         from repro_torch.data import vectors
         from repro_torch.index import flat, ivf
         from repro_torch.kernels import _build, cuda, ref
@@ -162,7 +202,8 @@ def main() -> int:
     launches = dict(cuda.LAUNCHES)
     print(f"[main] launches {launches}", flush=True)
 
-    _, gt = flat.search(q, torch.as_tensor(ds.base, device=dev), 10)
+    xb = torch.as_tensor(ds.base, device=dev)
+    _, gt = flat.search(q, xb, 10)
     plain_ndis = float(plain.ndis.float().mean())
     main["plain"] = {
         "recall": float(flat.recall_at_k(plain_i, gt).mean()),
@@ -189,13 +230,38 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
 
+    # Where one fit batch's step log (256 learn queries x nprobe steps, as
+    # Darth.fit runs it) spends its time: wall without the profiler, then
+    # wall and device time by kernel of one run under it, whose ratio is
+    # the device's idle share (the profiler's own cost included).
+    ql = torch.as_tensor(ds.learn[:256], device=dev)
+    _, gt_l = flat.search(ql, xb, 10)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    training.generate_observations(darth.engine, ql, gt_l)
+    torch.cuda.synchronize()
+    trace = {"wall_s": time.time() - t0}
+    pwall, by = profiled(lambda: training.generate_observations(
+        darth.engine, ql, gt_l))
+    if not by:
+        return fail("torch.profiler recorded no device time")
+    busy = sum(by.values()) / 1e3
+    trace.update({
+        "profiled_wall_s": pwall, "device_busy_s": busy,
+        "idle_share": 1.0 - busy / pwall,
+        "bucket_probe_s": sum(probe_kernels_ms(by, 1).values()) / 1e3,
+        "top_kernels_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])
+                               [:6])})
+    main["step_log_batch"] = trace
+    print(f"[trace] one fit batch's step log: {trace}", flush=True)
+
     # -- 3. kernels against their plain versions --------------------------------
     kernels = []
     gen = torch.Generator(device="cpu").manual_seed(0)
 
     # l2_topk at the fit's ground-truth shape: one query chunk x the database.
     qg = torch.as_tensor(ds.learn[:1024], device=dev)
-    x = torch.as_tensor(ds.base, device=dev)
+    x = xb
     xsq = (x ** 2).sum(1)
     k = 10
     d_k, i_k = cuda.l2_topk(qg, x, xsq, k)
@@ -294,30 +360,131 @@ def main() -> int:
                     "id_agreement": agree8b, "tol": btol})
     if not (okb and okp and ok8b) or cnt_diff > 2:
         return fail(f"bucket_probe disagrees with plain: {bchecks}")
-    # Bytes this probe must move: every id of each active query's bucket,
-    # the codes and sqnorm of its live rows (pads carry id -1 and distance
-    # +inf whatever their codes), the query, and the running top-k in/out.
-    rows = int(act.sum())
+    # Bytes a probe call must move: each distinct bucket that an active
+    # query reads, once (every id, and the codes and sqnorm of its live
+    # rows: pads carry id -1 and distance +inf whatever their codes), and
+    # each active query's own inputs and running top-k in and out. Queries
+    # of one call that share a bucket find it in L2 after the first read.
     cap, code_bytes = index.cap, index.bucket_vecs.element_size()
-    live = int((index.bucket_ids[sl[act]] >= 0).sum())
-    byts = 4.0 * rows * cap + live * (dd * code_bytes + 4.0) \
-        + 4.0 * rows * (dd + 3) + 16.0 * rows * 10
-    flop = 2.0 * live * dd
+    live_per_bucket = (index.bucket_ids >= 0).sum(1).double()
+
+    def probe_bound(slots, active):
+        """The least time of one bucket_probe_slots call per row of
+        slots [R, B] (summed over rows), with its live rows and distinct
+        buckets; and, for comparison, the bytes' time if every query read
+        its bucket from device memory itself."""
+        slots = slots.reshape(-1, slots.shape[-1]).long()
+        rows = float(active.sum())
+        read = torch.zeros(slots.shape[0], index.nlist + 1,
+                           dtype=torch.double, device=slots.device)
+        read.scatter_(1, slots.masked_fill(~active, index.nlist), 1.0)
+        read = read[:, :index.nlist]
+        live = read @ live_per_bucket
+        own = 4.0 * rows * (dd + 3) + 16.0 * rows * 10
+        byts = 4.0 * cap * read.sum(1) + live * (dd * code_bytes + 4.0) + own
+        live_q = (live_per_bucket[slots] * active).sum(1)
+        byts_q = 4.0 * rows * cap + live_q * (dd * code_bytes + 4.0) + own
+        t_b, t_f = byts / HBM_BYTES_PER_S, 2.0 * live_q * dd / F32_FLOP_PER_S
+        return {"bound_ms": 1e3 * float(torch.maximum(t_b, t_f).sum()),
+                "bound_by": "bytes" if bool((t_b >= t_f).all())
+                else "operations",
+                "live_rows": int(live.sum()), "buckets": int(read.sum()),
+                "live_rows_per_query_sum": int(live_q.sum()),
+                "bound_per_query_reads_ms":
+                    1e3 * float((byts_q / HBM_BYTES_PER_S).sum())}
+
+    pb = probe_bound(slot, act)
+    rows = int(act.sum())
     ms = cuda_ms(lambda: cuda.bucket_probe_slots(*pargs), 50)
     plain_ms = cuda_ms(lambda: ref.bucket_probe_slots_ref(*pargs), 5)
+    print(f"[kernels] bucket_probe rank-1 B={rows} ms={ms:.4f} {pb}",
+          flush=True)
+
+    # Where the main path runs it: (a) Darth.search's first step, 1000 test
+    # queries on their nearest bucket with an empty running top-k; (b) one
+    # fit batch, 256 learn queries through all nprobe ranks in turn, the
+    # running top-k carried from the kernel's own output.
+    sa = ivf.init_state(index, q, k=10, nprobe=args.nlist)
+    slot_a = sa.probe_order[:, 0].contiguous()
+    act_a = torch.ones_like(sa.active)
+    aargs = (sa.q, *store, slot_a, act_a, sa.qsq,
+             sa.topk_d[:, -1:].contiguous(), sa.topk_d, sa.topk_i)
+    ga = cuda.bucket_probe_slots(*aargs)
+    wa = ref.bucket_probe_slots_ref(*aargs)
+    erra, agreea, oka = topk_agreement(ga[0], ga[1], wa[0], wa[1], btol)
+    cnt_a = int((ga[2] - wa[2]).abs().max())
+    bchecks.append({"case": "f32 store B=1000 rank 0", "max_abs_err": erra,
+                    "id_agreement": agreea, "count_max_diff": cnt_a,
+                    "tol": btol})
+    del wa
+    pb_a = probe_bound(slot_a, act_a)
+    ms_a = cuda_ms(lambda: cuda.bucket_probe_slots(*aargs), 20)
+    print(f"[kernels] bucket_probe rank-0 B={q.shape[0]} ms={ms_a:.4f} "
+          f"{pb_a}", flush=True)
+
+    slots_b = s0.probe_order.t().contiguous()   # [nprobe, 256]
+
+    def fit_sweep(timed):
+        rd, ri = s0.topk_d, s0.topk_i
+        evs = []
+        for r in range(slots_b.shape[0]):
+            kth_r = rd[:, -1:].contiguous()
+            if timed:
+                evs.append((torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True)))
+                evs[-1][0].record()
+            rd, ri, _ = cuda.bucket_probe_slots(
+                s0.q, *store, slots_b[r], act, s0.qsq, kth_r, rd, ri)
+            if timed:
+                evs[-1][1].record()
+        torch.cuda.synchronize()
+        return rd, ri, sum(e0.elapsed_time(e1) for e0, e1 in evs)
+
+    rd, ri, _ = fit_sweep(False)
+    ms_b = fit_sweep(True)[2]
+    pb_b = probe_bound(slots_b, act)
+    # After every rank the carried top-k is the exact top-10 of the batch.
+    gd, gi = flat.search(s0.q, x, 10)
+    errs, agrees, oks = topk_agreement(rd, ri, gd, gi, btol)
+    bchecks.append({"case": f"f32 fit sweep B=256 x {slots_b.shape[0]} "
+                            "ranks vs exact top-10",
+                    "max_abs_err": errs, "id_agreement": agrees,
+                    "tol": btol})
+    if not (oka and oks) or cnt_a > 2:
+        return fail(f"bucket_probe disagrees with plain: {bchecks}")
+    print(f"[kernels] bucket_probe fit sweep B=256 x {slots_b.shape[0]} "
+          f"ms={ms_b:.4f} {pb_b}", flush=True)
+    shapes = [
+        dict({"case": "rank 1, fit batch", "B": rows, "ms": ms}, **pb),
+        dict({"case": "rank 0, Darth.search first step",
+              "B": int(q.shape[0]), "ms": ms_a}, **pb_a),
+        dict({"case": f"fit batch, ranks 0..{slots_b.shape[0] - 1} summed",
+              "B": rows, "launches": int(slots_b.shape[0]), "ms": ms_b},
+             **pb_b)]
+    # The same three under the profiler: device ms of the call's kernels,
+    # per call (summed over the sweep's calls). "ms" times whole calls with
+    # CUDA events, so in the sweep, where a call waits for the host between
+    # its launches, it also holds the device's idle time.
+    for row, fn, calls in ((shapes[0], lambda: cuda.bucket_probe_slots(
+            *pargs), 20), (shapes[1], lambda: cuda.bucket_probe_slots(
+            *aargs), 20), (shapes[2], lambda: fit_sweep(False), 1)):
+        by = profiled(lambda: [fn() for _ in range(calls)])[1]
+        row["kernels_ms"] = probe_kernels_ms(by, calls)
+        if not row["kernels_ms"]:
+            return fail(f"torch.profiler recorded no probe kernel: {by}")
+        row["device_ms"] = sum(row["kernels_ms"].values())
+    print(f"[kernels] bucket_probe shapes {shapes}", flush=True)
     kernels.append({
         "name": "bucket_probe", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bucket_probe.cu",
         "replaces": "src/repro/kernels/bucket_topk.py:36",
         "launches": launches["bucket_probe"],
-        "max_abs_err": max(errb, errp, err8b), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(byts / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S),
-        "bound_by": "bytes" if byts / HBM_BYTES_PER_S
-        >= flop / F32_FLOP_PER_S else "operations",
-        "library_ms": None,
+        "max_abs_err": max(errb, errp, err8b, erra, errs), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": pb["bound_ms"],
+        "bound_by": pb["bound_by"], "library_ms": None,
         "shape": f"B={rows} store[{index.nlist},{cap},{dd}] f32 k=10 "
-                 f"live_rows={live}",
-        "checks": bchecks})
+                 f"live_rows={pb['live_rows']}",
+        "shapes": shapes, "checks": bchecks})
     del v8, sq8
 
     # gbdt_predict: the fitted predictor on one fit batch of logged features.

@@ -24,7 +24,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "bucket_probe": ("bucket_probe_launch",
                      [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _P]),
+                      _P, _I, _I, _I, _I, _I, _P]),
     "l2_topk": ("l2_topk_launch",
                 [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "gbdt_predict": ("gbdt_predict_launch",
@@ -115,6 +115,16 @@ def l2_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
     return out_d, out_i
 
 
+def probe_tile() -> int:
+    """Rows of a bucket that one block of bucket_probe.cu reads, as its
+    library reports them."""
+    if "bucket_probe_tile" not in _FNS:
+        f = _build.load("bucket_probe").bucket_probe_tile
+        f.argtypes, f.restype = [], ctypes.c_int
+        _FNS["bucket_probe_tile"] = f
+    return _FNS["bucket_probe_tile"]()
+
+
 def _bucket(q, vecs, sqn, ids, slot, active, bias, kth, run_d, run_i):
     dev = _cuda_device(q)
     b, d = q.shape
@@ -136,6 +146,12 @@ def _bucket(q, vecs, sqn, ids, slot, active, bias, kth, run_d, run_i):
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     out_c = torch.empty((b,), dtype=torch.int32, device=dev)
+    # Each query's bucket is split into tiles of probe_tile() rows, one
+    # block each; their top-k lists and counts meet in this scratch and a
+    # second kernel of the same call merges them.
+    ntiles = -(-c // probe_tile())
+    scratch = torch.empty(b * ntiles * (2 * k + 1), dtype=torch.int32,
+                          device=dev)
     vec_path = int(d * vecs.element_size() % 16 == 0
                    and vecs.data_ptr() % 16 == 0)
     _launch("bucket_probe", dev, q.data_ptr(), vecs.data_ptr(),
@@ -144,7 +160,7 @@ def _bucket(q, vecs, sqn, ids, slot, active, bias, kth, run_d, run_i):
             active.data_ptr() if active is not None else None,
             bias.data_ptr(), kth.data_ptr(), run_d.data_ptr(),
             run_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            out_c.data_ptr(), b, c, d, k, vec_path)
+            out_c.data_ptr(), scratch.data_ptr(), b, c, d, k, vec_path)
     return out_d, out_i, out_c
 
 

@@ -82,17 +82,31 @@ def test_l2_topk_kernel_integer_data_exact(dev, dt):
     assert i.is_cuda and int(i[0, 0]) == 17
 
 
-def _probe_inputs(rng, b, c, d, k, dev):
+def _probe_inputs(rng, b, c, d, k, dev, ties=False):
     q = rng.integers(-8, 9, (b, d)).astype(np.float32)
     vecs = rng.integers(-8, 9, (b, c, d)).astype(np.float32)
     vecs[:, c // 2] = vecs[:, 1]                 # duplicated rows: ties
     ids = rng.integers(0, 10_000, (b, c)).astype(np.int32)
     ids[rng.random((b, c)) < 0.15] = -1          # pads and tombstones
+    if ties:
+        # The kernel splits a bucket into tiles of cuda.probe_tile() rows:
+        # plant rows equal to the query (distance 0, so they reach the top
+        # k) on both sides of every tile boundary and inside the first tile.
+        tile = cuda.probe_tile()
+        for lo in range(tile, c, tile):
+            vecs[:, lo - 1] = vecs[:, lo] = q
+            ids[:, lo - 1:lo + 1] = rng.integers(0, 10_000, (b, 2))
+        vecs[:, min(c, tile) * 2 // 3] = q
+        if c > 2 * tile:
+            ids[::2, tile:2 * tile] = -1             # a tile of tombstones
+            ids[1::2, (c - 1) // tile * tile:] = -1  # a last tile of pads
     sqn = (vecs ** 2).sum(2).astype(np.float32)
     sqn[ids < 0] = np.inf
     bias = (q ** 2).sum(1, keepdims=True).astype(np.float32)
     full = sqn - 2 * np.einsum("bd,bcd->bc", q, vecs) + bias
     run_d = np.sort(full[:, :k] + rng.integers(0, 3, (b, k)), 1)
+    if ties:
+        run_d[1::3, 0] = 0                       # ties the planted rows
     run_d[:, k - 2:] = np.inf
     run_i = rng.integers(20_000, 30_000, (b, k)).astype(np.int32)
     run_i[:, k - 2:] = -1
@@ -103,19 +117,34 @@ def _probe_inputs(rng, b, c, d, k, dev):
                   run_d.astype(np.float32), run_i))
 
 
+# (cap, width, k, queries, share of them active, tile-boundary ties planted)
+PROBE_CASES = {
+    "200-128-10": (200, 128, 10, 40, 0.7, False),
+    "2500-16-64": (2500, 16, 64, 40, 0.7, False),
+    "33-7-5": (33, 7, 5, 40, 0.7, False),
+    "1400-128-10": (1400, 128, 10, 40, 0.7, False),
+    "768-24-10": (768, 24, 10, 40, 0.7, True),
+    "1100-7-10": (1100, 7, 10, 40, 0.7, True),
+    "1024-128-1": (1024, 128, 1, 40, 0.7, True),
+    "1400-128-64-ties": (1400, 128, 64, 40, 0.7, True),
+    "900-32-64-one-query": (900, 32, 64, 1, 1.0, True),
+    "900-32-64-all-inactive": (900, 32, 64, 9, 0.0, True),
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("c,d,k", [(200, 128, 10), (2500, 16, 64),
-                                   (33, 7, 5), (1400, 128, 10)])
-def test_bucket_probe_kernel_matches_plain(dev, dt, c, d, k):
+@pytest.mark.parametrize("c,d,k,b,share,ties", list(PROBE_CASES.values()),
+                         ids=list(PROBE_CASES))
+def test_bucket_probe_kernel_matches_plain(dev, dt, c, d, k, b, share, ties):
     rng = np.random.default_rng(c + d)
-    s, b = 12, 40
+    s = 12
     q, vecs, sqn, ids, bias, kth, run_d, run_i = _probe_inputs(
-        rng, s, c, d, k, dev)
+        rng, s, c, d, k, dev, ties)
     vecs = vecs.to(TDT[dt])
     slot = torch.as_tensor(rng.integers(0, s, b), dtype=torch.int32,
                            device=dev)
-    active = torch.as_tensor(rng.random(b) < 0.7, device=dev)
+    active = torch.as_tensor(rng.random(b) < share, device=dev)
     sl = slot.long()
     args = (q[sl].contiguous(), vecs, sqn, ids, slot, active,
             bias[sl].contiguous(), kth[sl].contiguous(),
@@ -125,6 +154,8 @@ def test_bucket_probe_kernel_matches_plain(dev, dt, c, d, k):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert torch.equal(got[1][~active], args[9][~active])
+    assert not got[2][~active].any()
     pre = (args[0], vecs[sl].contiguous(), sqn[sl].contiguous(),
            ids[sl].contiguous()) + args[6:]
     for g, w in zip(cuda.bucket_probe(*pre), ref.bucket_probe_ref(*pre)):

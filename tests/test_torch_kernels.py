@@ -21,7 +21,7 @@ from repro.data import vectors as ref_vectors  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.data import vectors  # noqa: E402
-from repro_torch.kernels import cuda, ops  # noqa: E402
+from repro_torch.kernels import cuda, ops, ref  # noqa: E402
 
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16, "int8": jnp.int8}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
@@ -205,6 +205,72 @@ def test_bucket_probe_slots_gathers_and_masks_inactive():
     np.testing.assert_array_equal(_np(i_p)[~a], rib[~a])
     np.testing.assert_array_equal(_np(d_p)[~a], rdb[~a])
     assert (_np(c_p)[~a] == 0).all()
+
+
+def _merge_tiles_in_order(run_d, run_i, tiles, k):
+    """The CUDA kernel's second pass, written out: per query, start from
+    the running top-k and insert each tile's list, tile by tile and in list
+    order, at position #(entries <= d); an entry at position k drops."""
+    out_d, out_i = run_d.copy(), run_i.copy()
+    for b in range(run_d.shape[0]):
+        ld, li = list(run_d[b]), list(run_i[b])
+        for td, ti in tiles:
+            for d, i in zip(td[b], ti[b]):
+                pos = sum(x <= d for x in ld)
+                if pos < k:
+                    ld, li = (ld[:pos] + [d] + ld[pos:])[:k], \
+                        (li[:pos] + [i] + li[pos:])[:k]
+        out_d[b], out_i[b] = ld, li
+    return out_d, out_i
+
+
+@pytest.mark.parametrize("tile", [7, 16, 64])
+@pytest.mark.parametrize("k", [1, 5, 20])
+def test_bucket_probe_tile_split_merges_to_the_single_pass(tile, k):
+    """The invariant the CUDA kernel's tile split rests on: the k best of
+    each column slice, filtered to d < the running k-th and merged in slice
+    order by #(entries <= d) insertion, are the single pass's top-k, ties
+    included; the per-slice counts sum to its count."""
+    rng = np.random.default_rng(tile * 100 + k)
+    b, c, d = 6, 150, 8
+    q = rng.integers(-4, 5, (b, d)).astype(np.float32)
+    vecs = rng.integers(-4, 5, (b, c, d)).astype(np.float32)
+    for lo in range(tile, c, tile):   # equal rows across every boundary,
+        vecs[:, lo - 1] = vecs[:, lo] = q   # at distance 0
+    vecs[:, 3::11] = vecs[:, 2:3]     # more ties, inside and across slices
+    ids = rng.integers(0, 10_000, (b, c)).astype(np.int32)
+    ids[rng.random((b, c)) < 0.15] = -1
+    ids[::2, tile:2 * tile] = -1      # a slice of tombstones only
+    sqn = np.where(ids >= 0, (vecs ** 2).sum(2), np.inf).astype(np.float32)
+    bias = (q ** 2).sum(1, keepdims=True).astype(np.float32)
+    full = sqn - 2 * np.einsum("bd,bcd->bc", q, vecs) + bias
+    run_d = np.sort(full[:, c - k:] + rng.integers(0, 2, (b, k)), 1)
+    run_d[::3, 0] = 0                 # a running entry tied with the planted
+    run_d[1::3, k // 2:] = np.inf
+    run_d = run_d.astype(np.float32)
+    run_i = rng.integers(20_000, 30_000, (b, k)).astype(np.int32)
+    run_i[np.isinf(run_d)] = -1
+    kth = np.median(full, axis=1, keepdims=True).astype(np.float32)
+    args = [_t(a) for a in (q, vecs, sqn, ids, bias, kth, run_d, run_i)]
+    want = [_np(a) for a in ref.bucket_probe_ref(*args)]
+
+    empty_d = torch.full((b, k), float("inf"))
+    empty_i = torch.full((b, k), -1, dtype=torch.int32)
+    tiles, count = [], 0
+    for lo in range(0, c, tile):
+        sl = slice(lo, lo + tile)
+        td, ti, tc = (_np(a) for a in ref.bucket_probe_ref(
+            args[0], args[1][:, sl], args[2][:, sl], args[3][:, sl],
+            args[4], args[5], empty_d, empty_i))
+        keep = td < run_d[:, -1:]     # running entries win every tie
+        tiles.append((np.where(keep, td, np.inf), np.where(keep, ti, -1)))
+        count = count + tc
+    got_d, got_i = _merge_tiles_in_order(run_d, run_i, tiles, k)
+    np.testing.assert_array_equal(got_i, want[1])
+    np.testing.assert_array_equal(got_d, want[0])
+    np.testing.assert_array_equal(count, want[2])
+    # the ties decided something: the top-k holds equal distances
+    assert (np.diff(want[0], axis=1) == 0).any() or k == 1
 
 
 def _fitted_ensemble(trees=20, depth=4, seed=1):
