@@ -20,10 +20,23 @@ Phases, each fatal on failure:
               path's own tensors and shapes (f32, and int8 codes for both
               distance kernels), with times of the kernel, the plain version
               and, for l2_topk, one PyTorch call computing the same function.
+              l2_topk is timed at its three shapes (the fit's ground truth,
+              k-means assignment, int8 codes), each with the profiler's
+              device time per kernel, and must be bit-equal to its plain
+              version on SIFT-range integer data (0..255, D = 128).
               bucket_probe is also timed where the main path runs it: the
               first step of Darth.search (1000 queries) and a whole fit
               batch (256 queries through every probe rank), each beside
               its byte bound.
+
+Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
+read once, each output written once) over 3.35 TB/s and its operations
+over the card's peak for their type. l2_topk owes its 2*B*N*D flops to
+f32 accuracy, so its operations are counted as three TF32 passes at 495
+TFLOP/s for f32 codes, and three bf16 passes at 989 TFLOP/s for bf16 or
+int8 codes (exact in bf16; an f32 query split in three bf16 parts carries
+f32's 24 bits). Beside it, ``f32_core_bound_ms`` counts the same flops
+once at 67 TFLOP/s (f32 on the CUDA cores), the figure earlier runs used.
 
 It imports nothing of JAX or of the ``repro`` package. Output: a JSON line
 of per-kernel results, the card's name and power limit, and last
@@ -42,6 +55,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12        # H100 SXM dense TF32 tensor cores
+BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+PROFILER_PAD = 512              # spin kernels that open a profiled session
 TARGETS = (0.80, 0.90, 0.95)
 TOL = 0.03
 
@@ -67,35 +83,50 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def profiled(fn):
-    """(wall s, {kernel: device ms}) of one fn() under torch.profiler, the
-    wall time taken in the same run. The dict is empty where the profiler
-    recorded no device time."""
+    """(wall s, {kernel: device ms}, {kernel: launches}) of one fn() under
+    torch.profiler, the wall time taken in the same run, the device time
+    and launch count as recorded. The dicts are empty where the profiler
+    recorded no device time.
+
+    A session loses its first few device records once the process has run
+    earlier sessions (none in a fresh process; up to every launch of a
+    short session after the main path), so each session opens with
+    PROFILER_PAD empty spin kernels, left out of the result, before fn()."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILER_PAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    by = {}
+    by, counts = {}, {}
     for e in prof.key_averages():  # the device's own events only
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
-        if "CUDA" in str(e.device_type) and us > 0:
+        if ("CUDA" in str(e.device_type) and us > 0
+                and "spin_kernel" not in e.key):
             by[e.key] = us / 1e3
-    return wall, by
+            counts[e.key] = e.count
+    return wall, by, counts
 
 
-def probe_kernels_ms(by, calls):
-    """Device ms per call of each kernel of a bucket_probe call, by short
-    name (probe_tile_kernel and probe_merge_kernel)."""
+def kernels_ms(by, counts, word, per_call=1):
+    """Device ms per call of each kernel whose name holds ``word``, by
+    short name (probe_tile_kernel and probe_merge_kernel for "probe",
+    l2_topk_kernel and l2_merge_kernel for "l2_"): its mean time over the
+    launches the profiler recorded, times its launches per call, so that a
+    launch the profiler missed (see profiled) does not read as time saved."""
     out = {}
     for key, ms in by.items():
-        m = re.search(r"(\w*probe\w*_kernel)", key)
+        m = re.search(rf"(\w*{word}\w*_kernel)", key)
         if m:
-            out[m.group(1)] = out.get(m.group(1), 0.0) + ms / calls
+            out[m.group(1)] = (out.get(m.group(1), 0.0)
+                               + ms / counts[key] * per_call)
     return out
 
 
@@ -174,6 +205,7 @@ def main() -> int:
     index = ivf.build(ds.base, nlist=args.nlist, seed=0)
     torch.cuda.synchronize()
     main["build_s"] = time.time() - t0
+    l2_build = cuda.LAUNCHES["l2_topk"]
     print(f"[main] ivf.build nlist={index.nlist} cap={index.cap} "
           f"({main['build_s']:.1f}s)", flush=True)
     darth = api.Darth(
@@ -182,6 +214,7 @@ def main() -> int:
     t0 = time.time()
     trained = darth.fit(ds.learn, ds.base)
     main["fit_s"] = time.time() - t0
+    l2_fit = cuda.LAUNCHES["l2_topk"] - l2_build
     main["fit_split_s"] = dict(darth.fit_seconds)
     main["predictor"] = dict(trained.metrics, samples=trained.num_samples)
     print(f"[main] Darth.fit {main['fit_s']:.1f}s split "
@@ -200,7 +233,11 @@ def main() -> int:
         torch.cuda.synchronize()
         results[rt] = (ids, st, time.time() - t0)
     launches = dict(cuda.LAUNCHES)
-    print(f"[main] launches {launches}", flush=True)
+    l2_by_phase = {"build": l2_build, "fit": l2_fit,
+                   "search": launches["l2_topk"] - l2_build - l2_fit}
+    main["l2_topk_launches"] = l2_by_phase
+    print(f"[main] launches {launches} l2_topk by phase {l2_by_phase}",
+          flush=True)
 
     xb = torch.as_tensor(ds.base, device=dev)
     _, gt = flat.search(q, xb, 10)
@@ -241,7 +278,7 @@ def main() -> int:
     training.generate_observations(darth.engine, ql, gt_l)
     torch.cuda.synchronize()
     trace = {"wall_s": time.time() - t0}
-    pwall, by = profiled(lambda: training.generate_observations(
+    pwall, by, _ = profiled(lambda: training.generate_observations(
         darth.engine, ql, gt_l))
     if not by:
         return fail("torch.profiler recorded no device time")
@@ -249,7 +286,8 @@ def main() -> int:
     trace.update({
         "profiled_wall_s": pwall, "device_busy_s": busy,
         "idle_share": 1.0 - busy / pwall,
-        "bucket_probe_s": sum(probe_kernels_ms(by, 1).values()) / 1e3,
+        "bucket_probe_s": sum(ms for key, ms in by.items()
+                              if "probe" in key) / 1e3,
         "top_kernels_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])
                                [:6])})
     main["step_log_batch"] = trace
@@ -259,61 +297,105 @@ def main() -> int:
     kernels = []
     gen = torch.Generator(device="cpu").manual_seed(0)
 
-    # l2_topk at the fit's ground-truth shape: one query chunk x the database.
-    qg = torch.as_tensor(ds.learn[:1024], device=dev)
+    # l2_topk at the main path's two shapes and on int8 codes: the fit's
+    # ground truth (one query chunk x the database, k = 10), k-means
+    # assignment (a 65536-row chunk x the centroids, k = 1) and SQ8 codes.
     x = xb
     xsq = (x ** 2).sum(1)
-    k = 10
-    d_k, i_k = cuda.l2_topk(qg, x, xsq, k)
-    torch.cuda.synchronize()
-    d_r, i_r = ref.l2_topk_ref(qg, x, xsq, k)
     tol = 1e-3 + 1e-5 * float(xsq.max())
-    err, agree, ok = topk_agreement(d_k, i_k, d_r, i_r, tol)
-    checks = [{"case": "f32 1024x1M k=10", "max_abs_err": err,
-               "id_agreement": agree, "tol": tol}]
-    if not ok:
-        return fail(f"l2_topk f32 disagrees with plain (err {err}, tol {tol})")
-    # k-means assignment shape (k=1), and int8 SQ8 codes.
-    xa = x[:65536]
-    cents = index.centroids
-    d1, i1 = cuda.l2_topk(xa, cents, (cents ** 2).sum(1), 1)
-    d1r, i1r = ref.l2_topk_ref(xa, cents, (cents ** 2).sum(1), 1)
-    err1, agree1, ok1 = topk_agreement(d1, i1, d1r, i1r, tol)
-    checks.append({"case": "f32 65536x1024 k=1", "max_abs_err": err1,
-                   "id_agreement": agree1, "tol": tol})
     lo, hi = x.min(0).values, x.max(0).values
     scale = torch.clamp_min((hi - lo) / 254.0, 1e-12)
     offset = (hi + lo) / 2.0
     x8 = torch.clamp(torch.round((x - offset) / scale), -127, 127).to(
         torch.int8)
-    xsq8 = ((x8.float() * scale + offset) ** 2).sum(1)
-    qa = (qg * scale).contiguous()
-    d8, i8 = cuda.l2_topk(qa, x8, xsq8, k)
-    d8r, i8r = ref.l2_topk_ref(qa, x8, xsq8, k)
-    err8, agree8, ok8 = topk_agreement(d8, i8, d8r, i8r, tol)
-    checks.append({"case": "int8 1024x1M k=10", "max_abs_err": err8,
-                   "id_agreement": agree8, "tol": tol})
-    if not (ok1 and ok8):
-        return fail(f"l2_topk disagrees with plain: {checks}")
-    b, n, dd = qg.shape[0], x.shape[0], x.shape[1]
-    flop = 2.0 * b * n * dd
-    byts = 4.0 * (b * dd + n * dd + n) + 8.0 * b * k
-    ms = cuda_ms(lambda: cuda.l2_topk(qg, x, xsq, k), 2)
-    plain_ms = cuda_ms(lambda: ref.l2_topk_ref(qg, x, xsq, k), 1)
-    lib_ms = cuda_ms(lambda: torch.topk(torch.cdist(qg, x) ** 2, k,
-                                        largest=False), 1)
+    qg = torch.as_tensor(ds.learn[:1024], device=dev)
+    cents = index.centroids
+    l2_cases = [
+        ("fit ground truth, f32", qg, x, xsq, 10, l2_by_phase["fit"], 5),
+        ("k-means assignment, f32", x[:65536], cents, (cents ** 2).sum(1), 1,
+         l2_by_phase["build"], 20),
+        ("int8 codes", (qg * scale).contiguous(), x8,
+         ((x8.float() * scale + offset) ** 2).sum(1), 10, 0, 5)]
+
+    def l2_bound(qq, xx, kk):
+        """Both bounds of one l2_topk call, as the module docstring states."""
+        b, n, dd = qq.shape[0], xx.shape[0], xx.shape[1]
+        flop = 2.0 * b * n * dd
+        t_b = (4.0 * (b * dd + n) + n * dd * xx.element_size()
+               + 8.0 * b * kk) / HBM_BYTES_PER_S
+        t_ops = 3 * flop / (TF32_FLOP_PER_S if xx.dtype == torch.float32
+                            else BF16_FLOP_PER_S)
+        return {"bound_ms": 1e3 * max(t_ops, t_b),
+                "bound_by": "operations" if t_ops > t_b else "bytes",
+                "f32_core_bound_ms": 1e3 * max(flop / F32_FLOP_PER_S, t_b)}
+
+    l2_shapes, checks = [], []
+    for case, qq, xx, sq, kk, nl, reps in l2_cases:
+        d_k, i_k = cuda.l2_topk(qq, xx, sq, kk)
+        torch.cuda.synchronize()
+        d_r, i_r = ref.l2_topk_ref(qq, xx, sq, kk)
+        err, agree, ok = topk_agreement(d_k, i_k, d_r, i_r, tol)
+        checks.append({"case": case, "max_abs_err": err,
+                       "id_agreement": agree, "tol": tol})
+        if not ok:
+            return fail(f"l2_topk disagrees with plain: {checks}")
+        del d_r, i_r
+        xf = xx.float()
+        row = {"case": case, "shape": f"q[{qq.shape[0]},{qq.shape[1]}] "
+               f"x[{xx.shape[0]},{xx.shape[1]}] {xx.dtype} k={kk}",
+               "launches": nl,
+               "ms": cuda_ms(lambda: cuda.l2_topk(qq, xx, sq, kk), reps),
+               "plain_ms": cuda_ms(lambda: ref.l2_topk_ref(qq, xx, sq, kk), 1),
+               # x_sqnorm - 2 q.x and its k smallest, in PyTorch's calls
+               # (int8 codes widened to f32 outside the timing).
+               "library_ms": cuda_ms(lambda: torch.topk(torch.addmm(
+                   sq, qq, xf.T, alpha=-2), kk, largest=False), 1)}
+        row.update(l2_bound(qq, xx, kk))
+        _, by, counts = profiled(lambda: [cuda.l2_topk(qq, xx, sq, kk)
+                                          for _ in range(reps)])
+        row["kernels_ms"] = kernels_ms(by, counts, "l2_")
+        row["profiled_launches"] = {k: counts[k] for k in by if "l2_" in k}
+        row["profiled_calls"] = reps
+        if "l2_topk_kernel" not in row["kernels_ms"]:
+            return fail(f"torch.profiler recorded no l2_topk kernel: {by}")
+        row["device_ms"] = sum(row["kernels_ms"].values())
+        l2_shapes.append(row)
+        print(f"[kernels] l2_topk {row}", flush=True)
+        del xf
+    # On SIFT-range integers every product and partial sum is exact in the
+    # kernel's split TF32, so it must equal the plain version bit for bit.
+    gen_i = torch.Generator(device=dev).manual_seed(0)
+    qi = torch.randint(0, 256, (1024, x.shape[1]), generator=gen_i,
+                       device=dev).float()
+    xi = torch.randint(0, 256, tuple(x.shape), generator=gen_i,
+                       device=dev).float()
+    mid = xi.shape[0] // 2
+    xi[mid:mid + 10] = xi[17]        # ties: the lowest row first
+    qi[0] = xi[17]
+    xisq = (xi ** 2).sum(1)
+    for kk in (1, 10, 64):
+        d_k, i_k = cuda.l2_topk(qi, xi, xisq, kk)
+        d_r, i_r = ref.l2_topk_ref(qi, xi, xisq, kk)
+        if not (torch.equal(d_k, d_r) and torch.equal(i_k, i_r)):
+            return fail(f"l2_topk is not bit-equal to plain on integer data "
+                        f"(k={kk}, max err {float((d_k - d_r).abs().max())})")
+    checks.append({"case": f"SIFT-range integers 0..255 q[1024,{x.shape[1]}]"
+                           f" x[{x.shape[0]},{x.shape[1]}] k=1/10/64",
+                   "bit_equal": True})
+    del qi, xi, xisq, d_k, i_k, d_r, i_r
+    top = l2_shapes[0]
     kernels.append({
         "name": "l2_topk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/l2_topk.cu",
         "replaces": "src/repro/kernels/l2_topk.py:35",
-        "launches": launches["l2_topk"], "max_abs_err": max(err, err1, err8),
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(flop / F32_FLOP_PER_S, byts / HBM_BYTES_PER_S),
-        "bound_by": "operations" if flop / F32_FLOP_PER_S
-        > byts / HBM_BYTES_PER_S else "bytes",
-        "library_ms": lib_ms, "shape": f"q[{b},{dd}] x[{n},{dd}] k={k}",
-        "checks": checks})
-    del x8, d_r, i_r
+        "launches": launches["l2_topk"],
+        "max_abs_err": max(c.get("max_abs_err", 0.0) for c in checks),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "f32_core_bound_ms": top["f32_core_bound_ms"],
+        "library_ms": top["library_ms"], "shape": top["shape"],
+        "shapes": l2_shapes, "checks": checks})
+    del x8
 
     # bucket_probe: the first probe of a 256-query fit batch, read from the
     # whole bucket store (f32 and SQ8 int8), plus the pre-gathered entry.
@@ -366,6 +448,7 @@ def main() -> int:
     # each active query's own inputs and running top-k in and out. Queries
     # of one call that share a bucket find it in L2 after the first read.
     cap, code_bytes = index.cap, index.bucket_vecs.element_size()
+    dd = index.bucket_vecs.shape[2]
     live_per_bucket = (index.bucket_ids >= 0).sum(1).double()
 
     def probe_bound(slots, active):
@@ -465,11 +548,13 @@ def main() -> int:
     # per call (summed over the sweep's calls). "ms" times whole calls with
     # CUDA events, so in the sweep, where a call waits for the host between
     # its launches, it also holds the device's idle time.
-    for row, fn, calls in ((shapes[0], lambda: cuda.bucket_probe_slots(
-            *pargs), 20), (shapes[1], lambda: cuda.bucket_probe_slots(
-            *aargs), 20), (shapes[2], lambda: fit_sweep(False), 1)):
-        by = profiled(lambda: [fn() for _ in range(calls)])[1]
-        row["kernels_ms"] = probe_kernels_ms(by, calls)
+    nprobe = int(slots_b.shape[0])
+    for row, fn, calls, per_call in (
+            (shapes[0], lambda: cuda.bucket_probe_slots(*pargs), 20, 1),
+            (shapes[1], lambda: cuda.bucket_probe_slots(*aargs), 20, 1),
+            (shapes[2], lambda: fit_sweep(False), 1, nprobe)):
+        _, by, counts = profiled(lambda: [fn() for _ in range(calls)])
+        row["kernels_ms"] = kernels_ms(by, counts, "probe", per_call)
         if not row["kernels_ms"]:
             return fail(f"torch.profiler recorded no probe kernel: {by}")
         row["device_ms"] = sum(row["kernels_ms"].values())

@@ -1,50 +1,180 @@
 // Fused squared-L2 distance tiles + running per-row top-k against ONE shared
 // database, for Hopper (sm_90a). Computes, per query row, the k smallest of
-// x_sqnorm - 2 q.x (the wrapper adds ||q||^2 or the SQ8 bias afterwards).
-// The B x N distance matrix never reaches device memory.
+// x_sqnorm - 2 q.x (the wrapper adds ||q||^2 or the SQ8 bias afterwards),
+// ascending, the lower row first on a tie (as lax.top_k); slots never filled
+// hold (+inf, -1) and rows with x_sqnorm = +inf never enter. The B x N
+// distance matrix never reaches device memory.
 //
 // Replaces: src/repro/kernels/l2_topk.py::_l2_topk_kernel
 //           (launched by l2_topk_padded; ops.l2_topk).
 //
-// What bounds it on the H100: operations. At the fit's ground truth
-// (B = 10k queries, N = 1M rows, D = 128) it does 2*B*N*D = 2.6e15 f32
-// flops against 0.5 GB of database: ~5000 flops per byte, far above the
-// ridge. Products stay f32 x f32 on the CUDA cores (67 TFLOP/s peak), as
-// the reference multiplies f32 by f32 with f32 accumulation; TF32 tensor
-// cores would be a later, separately-toleranced choice.
+// What bounds it on the H100: operations. The main path runs it at two
+// shapes: the fit's exact ground truth (q [1024, 128] x the 1M-row database,
+// k = 10) and k-means assignment in ivf.build (q [<= 65536, 128] x 1024
+// centroids, k = 1). Both do 2*B*N*D flops on a few hundred MB at most, far
+// above the ridge. The function is owed f32 accuracy, so two figures bound
+// it: the least time to do the flops to f32 accuracy on the tensor cores
+// (three TF32 passes at 495 TFLOP/s for f32 codes; three bf16 passes at
+// 989 TFLOP/s for bf16/int8 codes, whose values are exact in bf16) -- 1.59
+// ms at the ground-truth shape, 0.104 ms at k-means -- and the old figure,
+// f32 FMAs on the CUDA cores at 67 TFLOP/s (3.91 ms and 0.256 ms).
 //
-// What the design does about it:
-//  * Register-blocked SIMT GEMM: a block owns BQ = 64 queries x BN = 128
-//    database rows; each of 256 threads accumulates a 4 x 8 tile, fed by
-//    float4 reads from shared memory. The database tile is read once per
-//    64 queries instead of once per query.
+// Products on the tensor cores in split TF32 ("3xTF32"). Each f32 operand is
+// split as a = a_hi + a_lo, a_hi = cvt.rna.tf32(a), a_lo = cvt.rna.tf32(a -
+// a_hi), and a.b is accumulated in f32 as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi
+// with mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32. bf16 and int8 codes have
+// at most 8 significant bits, exact in TF32's 11, so their lo part is zero
+// and the a_hi.b_lo pass is skipped. The dropped a_lo.b_lo term and the
+// rounding of a_lo leave a relative error near 2^-22 per product, inside the
+// tolerance the kernel is held to on float data.
+//
+// Exactness on integer data. An integer v with |v| <= 2048 has at most 11
+// significant bits, so it is exact in TF32: v_hi = v, v_lo = 0, and every
+// product the tensor cores form is an exact integer. Where every partial sum
+// of q.x is an integer below 2^24 in magnitude (values -8..8 at D = 40, or
+// SIFT's 0..255 at D = 128: 255^2 * 128 < 2^24), f32 holds each of them
+// exactly, so the sum is exact in any order and any accumulation width of
+// at least 24 bits. x_sqnorm - 2 q.x is then the same f32 operation as the
+// plain version's, and the kernel's distances and ids are bit-equal to it.
+//
+// What the design does:
+//  * A block owns BQ = 128 queries x BN = 128 database rows; 8 warps in a
+//    2 x 4 grid each own a 64 x 32 accumulator tile (4 x 4 mma tiles, 64 f32
+//    registers a thread). The larger query tile halves, against a 64-query
+//    tile, how often the k-means shape re-reads its 512 KB of centroids.
+//  * The depth is walked in chunks of BK = 64. q's and x's chunks stream
+//    into a ring of two shared-memory stages with cp.async (16-byte copies,
+//    zero-filled past B, past the block's rows and past D): chunk s+1 --
+//    across tile boundaries too -- is in flight while chunk s is multiplied,
+//    and one barrier a chunk hands a stage back. Rows whose width is not a
+//    multiple of 16 bytes, or tensors not 16-byte aligned, fill the same
+//    ring with plain loads.
+//  * The 8 k-slots of an mma take values (0, 2, 4, 6, 1, 3, 5, 7) of an
+//    8-deep step, in A and B alike, so a lane reads its two values of a row
+//    in one load. Rows are padded (288 bytes for f32, 144 for bf16, 80 for
+//    int8) so that no two lanes of a fragment load meet on a bank. Each
+//    element is split into hi / lo once, as it leaves shared memory into a
+//    fragment register, not once per product.
+//  * The top-k merge works as before, and off the products' path as far as
+//    it can: after a tile's last chunk, the warps that own the accumulators
+//    compute distances in registers and filter them against each query's
+//    running k-th (d < kth). Survivors are written to the stage the chunk
+//    just consumed, now a [BN][BQ] distance tile, with a per-query bit mask;
+//    a block-wide OR barrier skips the merge when no query has one. For
+//    k = 1 (k-means) a warp passes on only its best column of a row. Then
+//    thread r merges query r: survivors in ascending row order, each put
+//    after the entries <= it, so a tie keeps the lower row first. The lanes
+//    of a warp make their insertion passes together and without branching.
 //  * The TPU walks the database axis in sequence and carries the top-k in
-//    its output block. Here a loop inside the block walks a contiguous
-//    range of database tiles, keeping each query's running top-k in shared
-//    memory. To fill 132 SMs when B is small, the database is split into
-//    `nsplit` ranges over grid.y and a second kernel merges the per-range
-//    lists in range order.
-//  * The merge after each tile: a lane-parallel filter against the current
-//    k-th distance, then ordered insertion of the survivors at position
-//    #(entries <= d). Candidates arrive in ascending row order, so a tie
-//    keeps the lower row first, as lax.top_k does.
-//  * Rows past N count as +inf and never enter; list slots never filled
-//    stay (+inf, -1), the reference kernel's initial running top-k.
-//  * Database codes may be f32, bf16 or int8 (widened to f32 when staged).
+//    its output block. Here a block walks a contiguous range of database
+//    tiles; the database is split into `nsplit` ranges over grid.y so that
+//    one wave of blocks fills the 132 SMs, and l2_merge_kernel merges the
+//    per-range lists in range order (range s holds only rows below s+1's).
+//  * Tile sizes are the library's alone: l2_topk_tiles() reports them to
+//    the wrapper, which sizes nsplit from them.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64, BN = 128, BD = 16, kThreads = 256, kMaxK = 64;
-constexpr int SQ = BQ + 4, SX = BN + 4;  // padded staging rows
+constexpr int BQ = 128, BN = 128, BK = 64;  // block tile: queries, rows, depth
+constexpr int kWarpsM = 2, kWarpsN = 4;     // warp grid over (BQ, BN)
+constexpr int WM = BQ / kWarpsM, WN = BN / kWarpsN;  // 64 x 32 per warp
+constexpr int MT = WM / 16, NT = WN / 8;    // mma tiles per warp
+constexpr int kThreads = kWarpsM * kWarpsN * 32;
+constexpr int kStages = 2;
+constexpr int kMaxK = 64;
+constexpr int kMaskWords = BN / 32;
 constexpr unsigned kFull = 0xffffffffu;
+static_assert(WN == 32, "a warp's columns are one mask word");
+static_assert(BQ % 32 == 0, "whole warps merge, one query per thread");
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
+// Words to add to a row of `words` so that rows start `step` words apart
+// modulo `mod`.
+__host__ __device__ constexpr int pad_words(int words, int step, int mod) {
+  return ((step - words % mod) % mod + mod) % mod;
+}
+// Bytes of a staged row holding BK values of `bytes` each. A lane reads
+// values 2t, 2t+1 of row g in one load (8 bytes of f32, 4 of bf16, 2 of
+// int8). f32 rows start 8 words apart mod 32 (a half-warp reads 4 rows of
+// 8 words), bf16 and int8 rows 4 words apart: lanes share words, not banks.
+__host__ __device__ constexpr int staged_row(int bytes) {
+  return bytes == 4 ? 4 * (BK + pad_words(BK, 8, 32))
+                    : 4 * (BK * bytes / 4 + pad_words(BK * bytes / 4, 4, 8));
+}
+constexpr int kQRow = staged_row(4);
+
+// Raw staging type of a database code, and its bytes per staged row.
+template <typename T> struct Code;
+template <> struct Code<float> { using raw = float; static constexpr int row = staged_row(4); };
+template <> struct Code<__nv_bfloat16> { using raw = uint16_t; static constexpr int row = staged_row(2); };
+template <> struct Code<int8_t> { using raw = int8_t; static constexpr int row = staged_row(1); };
+
+template <typename T>
+__host__ __device__ constexpr int stage_bytes() { return BQ * kQRow + BN * Code<T>::row; }
+// A ring slot: one stage, or a tile's distances once its stage is consumed.
+template <typename T>
+__host__ __device__ constexpr int slot_bytes() {
+  return stage_bytes<T>() > BQ * BN * 4 ? stage_bytes<T>() : BQ * BN * 4;
+}
+
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// Values 2t and 2t+1 of a staged row, as f32 (exact for bf16 and int8).
+__device__ __forceinline__ void pair_f(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void pair_f(const uint16_t* p, float& a, float& b) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+  a = __uint_as_float(v << 16);
+  b = __uint_as_float(v & 0xffff0000u);
+}
+__device__ __forceinline__ void pair_f(const int8_t* p, float& a, float& b) {
+  const char2 v = *reinterpret_cast<const char2*>(p);
+  a = static_cast<float>(v.x);
+  b = static_cast<float>(v.y);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; bytes past src_bytes (0 or 16) are zero.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo, both TF32.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
 // See bucket_probe.cu: insert at #(entries <= d) into a list of K <= 64.
 __device__ __forceinline__ void warp_insert(float* ld, int* li, int K,
@@ -65,103 +195,284 @@ __device__ __forceinline__ void warp_insert(float* ld, int* li, int K,
   __syncwarp();
 }
 
-size_t tile_smem_floats() {
-  const size_t staging = BD * SQ + BD * SX;
-  const size_t dist = BQ * BN;
-  return staging > dist ? staging : dist;
+// Stage chunk `d0` of query block `qb` and of database tile `n0` (rows below
+// n_hi) into `stage`: q as [BQ][kQRow bytes] f32, x as [BN][Code<T>::row
+// bytes] raw codes, zero past B, n_hi and D.
+template <typename T>
+__device__ __forceinline__ void load_stage(char* stage, const float* q,
+                                           const T* x, int qb, int n0, int n_hi,
+                                           int d0, int B, int D, bool vec,
+                                           int tid) {
+  using R = typename Code<T>::raw;
+  char* sq = stage;
+  char* sx = stage + BQ * kQRow;
+  if (vec) {
+    constexpr int QSEG = BK * 4 / 16;            // 16-byte pieces of a q row
+    for (int e = tid; e < BQ * QSEG; e += kThreads) {
+      const int r = e / QSEG, s = e % QSEG, gq = qb + r, gd = d0 + s * 4;
+      const bool ok = gq < B && gd < D;
+      cp_async16(sq + r * kQRow + s * 16, ok ? q + (long long)gq * D + gd : q,
+                 ok ? 16 : 0);
+    }
+    constexpr int EPS = 16 / sizeof(R);          // codes per piece
+    constexpr int XSEG = BK / EPS;
+    for (int e = tid; e < BN * XSEG; e += kThreads) {
+      const int r = e / XSEG, s = e % XSEG, gn = n0 + r, gd = d0 + s * EPS;
+      const bool ok = gn < n_hi && gd < D;
+      const R* src = reinterpret_cast<const R*>(x);
+      cp_async16(sx + r * Code<T>::row + s * 16,
+                 ok ? src + (long long)gn * D + gd : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < BQ * BK; e += kThreads) {
+      const int r = e / BK, c = e % BK, gq = qb + r, gd = d0 + c;
+      reinterpret_cast<float*>(sq + r * kQRow)[c] =
+          (gq < B && gd < D) ? q[(long long)gq * D + gd] : 0.f;
+    }
+    const R* src = reinterpret_cast<const R*>(x);
+    for (int e = tid; e < BN * BK; e += kThreads) {
+      const int r = e / BK, c = e % BK, gn = n0 + r, gd = d0 + c;
+      reinterpret_cast<R*>(sx + r * Code<T>::row)[c] =
+          (gn < n_hi && gd < D) ? src[(long long)gn * D + gd] : R(0);
+    }
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 l2_topk_kernel(const float* __restrict__ q, const T* __restrict__ x,
                const float* __restrict__ xsq, float* __restrict__ out_d,
                int* __restrict__ out_i, int B, int N, int D, int K,
-               int rows_per_split, int tile_floats) {
-  extern __shared__ float smem[];
-  float* sq = smem;                 // [BD][SQ] staging (GEMM phase)
-  float* sx = smem + BD * SQ;       // [BD][SX]
-  float* dist = smem;               // [BQ][BN] (merge phase; aliases staging)
-  float* ld = smem + tile_floats;   // [BQ][K] running top-k
-  int* li = reinterpret_cast<int*>(ld + BQ * K);
+               int rows_per_split, bool vec) {
+  using R = typename Code<T>::raw;
+  constexpr bool kSplitX = sizeof(R) == 4;  // only f32 codes have a lo part
+  extern __shared__ __align__(16) char smem[];
+  // What a query owns lies along its own column (index + j * BQ), so the
+  // thread that merges query r reads and writes bank r % 32 only.
+  char* ring = smem;                                             // kStages slots
+  unsigned* mask = reinterpret_cast<unsigned*>(smem + kStages * slot_bytes<T>());  // [kMaskWords][BQ]
+  float* ld = reinterpret_cast<float*>(mask + kMaskWords * BQ);  // [K][BQ]
+  int* li = reinterpret_cast<int*>(ld + K * BQ);                 // [K][BQ]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ty = tid / 16, tx = tid % 16;
+  const int g = lane >> 2, t = lane & 3;         // mma fragment coordinates
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int qb = blockIdx.x * BQ;
-  const int split = blockIdx.y;
-  const int n_lo = split * rows_per_split;
+  const int n_lo = blockIdx.y * rows_per_split;
   const int n_hi = min(N, n_lo + rows_per_split);
+  const int nk = (D + BK - 1) / BK;
+  const int ntile = n_hi > n_lo ? (n_hi - n_lo + BN - 1) / BN : 0;
+  const int steps = ntile * nk;
 
   for (int e = tid; e < BQ * K; e += kThreads) { ld[e] = inf_f(); li[e] = -1; }
 
-  for (int n0 = n_lo; n0 < n_hi; n0 += BN) {
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  auto prefetch = [&](int s) {
+    if (s < steps)
+      load_stage<T>(ring + (s % kStages) * slot_bytes<T>(), q, x, qb,
+                    n_lo + (s / nk) * BN, n_hi, (s % nk) * BK, B, D, vec, tid);
+    cp_async_commit();
+  };
+  for (int s = 0; s < kStages - 1; ++s) prefetch(s);
 
-    for (int d0 = 0; d0 < D; d0 += BD) {
-      __syncthreads();  // the previous readers of the staging / dist tile are done
-      for (int e = tid; e < BQ * BD; e += kThreads) {
-        const int r = e / BD, c = e % BD, gq = qb + r, gd = d0 + c;
-        sq[c * SQ + r] = (gq < B && gd < D) ? q[(long long)gq * D + gd] : 0.f;
-      }
-      for (int e = tid; e < BN * BD; e += kThreads) {
-        const int r = e / BD, c = e % BD, gn = n0 + r, gd = d0 + c;
-        sx[c * SX + r] = (gn < n_hi && gd < D) ? to_f(x[(long long)gn * D + gd]) : 0.f;
-      }
-      __syncthreads();
+  float acc[MT][NT][4];
+  float xs[NT][2];  // x_sqnorm of this thread's 8 columns of the tile
+
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kStages - 2>();   // step s has landed (this thread's part)
+    __syncthreads();                // everyone's part; slot s-1 is free
+    prefetch(s + kStages - 1);
+    const int kc = s % nk, n0 = n_lo + (s / nk) * BN;
+    if (kc == 0) {
 #pragma unroll
-      for (int kk = 0; kk < BD; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(sq + kk * SQ + ty * 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(sx + kk * SX + tx * 4);
-        const float4 b1 = *reinterpret_cast<const float4*>(sx + kk * SX + 64 + tx * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
+          for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int gn = n0 + wn * WN + j * 8 + 2 * t + e;
+          xs[j][e] = gn < n_hi ? __ldg(xsq + gn) : inf_f();
+        }
     }
-    __syncthreads();  // staging reads done before dist overwrites it
+
+    char* stage = ring + (s % kStages) * slot_bytes<T>();
+    const float* sq = reinterpret_cast<const float*>(stage) + (wm * WM + g) * (kQRow / 4);
+    const R* sx = reinterpret_cast<const R*>(stage + BQ * kQRow +
+                                             (wn * WN + g) * Code<T>::row);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t ahi[MT][4], alo[MT][4], bhi[NT][2], blo[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        // The 8 k-slots of an mma hold values kk + (0, 2, 4, 6, 1, 3, 5, 7)
+        // in A and in B alike: slot t takes value 2t and slot t+4 value
+        // 2t+1, so a lane loads both with one access. The products summed
+        // are the same.
+        const float* p = sq + i * 16 * (kQRow / 4) + kk + 2 * t;
+        float r0, r1, r8, r9;  // rows g and g+8
+        pair_f(p, r0, r1);
+        pair_f(p + 8 * (kQRow / 4), r8, r9);
+        // a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+        split(r0, ahi[i][0], alo[i][0]);
+        split(r8, ahi[i][1], alo[i][1]);
+        split(r1, ahi[i][2], alo[i][2]);
+        split(r9, ahi[i][3], alo[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        // b0 (k = t, n = g), b1 (k = t+4, n = g); row n of the x chunk
+        const R* p = sx + j * 8 * (Code<T>::row / (int)sizeof(R)) + kk + 2 * t;
+        float v0, v1;
+        pair_f(p, v0, v1);
+        if constexpr (kSplitX) {
+          split(v0, bhi[j][0], blo[j][0]);
+          split(v1, bhi[j][1], blo[j][1]);
+        } else {  // exact in TF32
+          bhi[j][0] = __float_as_uint(v0);
+          bhi[j][1] = __float_as_uint(v1);
+        }
+      }
+      // Pass-major, so that 16 independent products separate two that
+      // accumulate into the same registers; the small terms go first.
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);
+      if constexpr (kSplitX) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ahi[i], blo[j]);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ahi[i], bhi[j]);
+    }
+    if (kc != nk - 1) continue;
+
+    // Tile done: distances in registers, filtered against each query's
+    // running k-th; survivors go to dist, the slot this step consumed
+    // ([BN][BQ] f32), with a bit in their query's mask. The slot is refilled
+    // only after the next step's barrier, which the merge comes before.
+    __syncthreads();
+    float* dist = reinterpret_cast<float*>(stage);
+    unsigned any = 0;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float v[4];
+        const int row = wm * WM + i * 16 + h * 8 + g;
+        const float kth = qb + row < B ? ld[(K - 1) * BQ + row] : -inf_f();
+        unsigned bits = 0;
+        if (K == 1) {
+          // A list of one can take only the best of the warp's 32 columns
+          // (the lowest on a tie), as k-means assignment asks: keep that.
+          float bd = inf_f();
+          int bc = 0;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int gn = n0 + h * 64 + tx * 4 + j;
-          v[j] = gn < n_hi ? xsq[gn] - 2.f * acc[i][h * 4 + j] : inf_f();
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float d = xs[j][e] - 2.f * acc[i][j][h * 2 + e];
+              if (d < bd) { bd = d; bc = j * 8 + 2 * t + e; }
+            }
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            const float od = __shfl_xor_sync(kFull, bd, off);
+            const int oc = __shfl_xor_sync(kFull, bc, off);
+            if (od < bd || (od == bd && oc < bc)) { bd = od; bc = oc; }
+          }
+          if (bd < kth) {
+            bits = 1u << bc;
+            if (t == 0) dist[(wn * WN + bc) * BQ + row] = bd;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float d = xs[j][e] - 2.f * acc[i][j][h * 2 + e];
+              if (d < kth) {
+                const int col = j * 8 + 2 * t + e;
+                dist[(wn * WN + col) * BQ + row] = d;
+                bits |= 1u << col;
+              }
+            }
+          bits |= __shfl_xor_sync(kFull, bits, 1);
+          bits |= __shfl_xor_sync(kFull, bits, 2);
         }
-        *reinterpret_cast<float4*>(dist + (ty * 4 + i) * BN + h * 64 + tx * 4) =
-            make_float4(v[0], v[1], v[2], v[3]);
+        if (t == 0) mask[wn * BQ + row] = bits;
+        any |= bits;
       }
-    }
-    __syncthreads();
-    // Warp w merges queries 8w .. 8w+7; candidates in ascending row order.
-    for (int qq = 0; qq < BQ / 8; ++qq) {
-      const int ql = warp * (BQ / 8) + qq;
-      if (qb + ql >= B) break;  // uniform across the warp
-      float* L = ld + ql * K;
-      int* I = li + ql * K;
-      for (int c = 0; c < BN; c += 32) {
-        const float d = dist[ql * BN + c + lane];
-        unsigned m = __ballot_sync(kFull, d < L[K - 1]);
-        while (m) {
-          const int src = __ffs(m) - 1;
-          m &= m - 1;
-          warp_insert(L, I, K, __shfl_sync(kFull, d, src), n0 + c + src, lane);
+    if (!__syncthreads_or(any != 0)) continue;
+    // Thread r merges query r: its survivors in ascending row order, each
+    // inserted after the entries <= it by one pass down the list, so a tie
+    // keeps the lower row first. A pass loads 8 entries ahead of the
+    // stores that shift them. The lanes of a warp take their next survivors
+    // together and make the same K-step pass without branching (a lane with
+    // nothing to insert rewrites its list as it is), so they never make it
+    // one after another.
+    if (tid < BQ) {
+      const bool mine = qb + tid < B;
+      float* L = ld + tid;
+      int* I = li + tid;
+      float kth = mine ? L[(K - 1) * BQ] : -inf_f();
+      int w = 0;
+      unsigned bits = mine ? mask[tid] : 0u;
+      for (;;) {
+        while (!bits && w + 1 < kMaskWords) {
+          ++w;
+          if (mine) bits = mask[w * BQ + tid];
         }
+        if (!__any_sync(kFull, bits != 0)) break;
+        float d = inf_f();
+        int col = 0;
+        if (bits) {
+          col = w * 32 + __ffs(bits) - 1;
+          bits &= bits - 1;
+          d = dist[col * BQ + tid];
+        }
+        const bool ins = d < kth;
+        if (!__any_sync(kFull, ins)) continue;
+        const int id = n0 + col;
+        float cur = L[(K - 1) * BQ];  // L[j] and I[j] before the pass reaches j
+        int cur_i = I[(K - 1) * BQ];
+        for (int j0 = K - 1; j0 > 0; j0 -= 8) {
+          float p[8];
+          int pi[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            if (j0 - u > 0) { p[u] = L[(j0 - u - 1) * BQ]; pi[u] = I[(j0 - u - 1) * BQ]; }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int j = j0 - u;
+            if (j <= 0) break;
+            // Shift the entry above down, put d here, or keep: stored
+            // either way, so the lanes do not branch apart.
+            const bool shift = ins && p[u] > d, put = ins && !shift && cur > d;
+            L[j * BQ] = shift ? p[u] : put ? d : cur;
+            I[j * BQ] = shift ? pi[u] : put ? id : cur_i;
+            cur = p[u];
+            cur_i = pi[u];
+          }
+        }
+        const bool put = ins && cur > d;
+        L[0] = put ? d : cur;
+        I[0] = put ? id : cur_i;
+        if (ins) kth = L[(K - 1) * BQ];
       }
     }
   }
+  cp_async_wait<0>();
   __syncthreads();
   for (int e = tid; e < BQ * K; e += kThreads) {
-    const int ql = e / K, j = e % K, gq = qb + ql;
+    const int ql = e % BQ, j = e / BQ, gq = qb + ql;
     if (gq < B) {
-      const long long at = ((long long)split * B + gq) * K + j;
+      const long long at = ((long long)blockIdx.y * B + gq) * K + j;
       out_d[at] = ld[e];
       out_i[at] = li[e];
     }
@@ -170,14 +481,14 @@ l2_topk_kernel(const float* __restrict__ q, const T* __restrict__ x,
 
 // One warp per query: merge the nsplit ascending lists [nsplit, B, K] in
 // range order (range s holds only rows below range s+1's).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 l2_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
                 float* __restrict__ out_d, int* __restrict__ out_i, int B, int K,
                 int nsplit) {
-  __shared__ float lds[kThreads / 32][kMaxK];
-  __shared__ int lis[kThreads / 32][kMaxK];
+  __shared__ float lds[8][kMaxK];
+  __shared__ int lis[8][kMaxK];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * (kThreads / 32) + warp;
+  const int b = blockIdx.x * 8 + warp;
   if (b >= B) return;  // whole warp
   float* L = lds[warp];
   int* I = lis[warp];
@@ -208,30 +519,38 @@ template <typename T>
 cudaError_t launch(const float* q, const void* x, const float* xsq, float* out_d,
                    int* out_i, float* part_d, int* part_i, int B, int N, int D, int K,
                    int nsplit, cudaStream_t stream) {
-  const int tile_floats = static_cast<int>(tile_smem_floats());
-  const size_t smem = sizeof(float) * tile_floats + (sizeof(float) + sizeof(int)) * BQ * K;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(l2_topk_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  const size_t smem = static_cast<size_t>(kStages) * slot_bytes<T>() +
+                      sizeof(unsigned) * kMaskWords * BQ +
+                      (sizeof(float) + sizeof(int)) * K * BQ;
+  cudaError_t e = cudaFuncSetAttribute(l2_topk_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  // 16-byte copies need 16-byte rows (of q and of x) at 16-byte addresses.
+  const bool vec = D % 4 == 0 && (D * sizeof(typename Code<T>::raw)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int tiles = (N + BN - 1) / BN;
   const int rows_per_split = (tiles + nsplit - 1) / nsplit * BN;
   const dim3 grid((B + BQ - 1) / BQ, nsplit);
   float* td = nsplit > 1 ? part_d : out_d;
   int* ti = nsplit > 1 ? part_i : out_i;
   l2_topk_kernel<T><<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(x), xsq, td, ti, B, N, D, K, rows_per_split, tile_floats);
-  cudaError_t e = cudaGetLastError();
+      q, static_cast<const T*>(x), xsq, td, ti, B, N, D, K, rows_per_split, vec);
+  e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return e;
-  const int per_block = kThreads / 32;
-  l2_merge_kernel<<<(B + per_block - 1) / per_block, kThreads, 0, stream>>>(
-      part_d, part_i, out_d, out_i, B, K, nsplit);
+  l2_merge_kernel<<<(B + 7) / 8, 256, 0, stream>>>(part_d, part_i, out_d, out_i, B, K,
+                                                   nsplit);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// The block tile: queries and database rows per block of l2_topk_kernel.
+extern "C" void l2_topk_tiles(int* queries, int* rows) {
+  *queries = BQ;
+  *rows = BN;
+}
 
 // x_dtype: 0 float32, 1 bfloat16, 2 int8. nsplit: database ranges over
 // grid.y (an empty range yields an all-(+inf, -1) list, which the merge
@@ -242,7 +561,7 @@ extern "C" int l2_topk_launch(const float* q, const void* x, int x_dtype,
                               float* part_d, int* part_i, int B, int N, int D,
                               int K, int nsplit, cudaStream_t stream) {
   if (B <= 0) return 0;
-  if (K < 1 || K > kMaxK || N < 1 || nsplit < 1)
+  if (K < 1 || K > kMaxK || N < 1 || D < 1 || nsplit < 1 || nsplit > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (x_dtype) {
     case 0: return launch<float>(q, x, xsq, out_d, out_i, part_d, part_i, B, N, D, K,

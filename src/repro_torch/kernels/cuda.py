@@ -97,11 +97,15 @@ def l2_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
         raise ValueError("l2_topk: empty database")
     out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    # Split the database over grid.y until ~2 blocks per SM are in flight.
+    # Split the database over grid.y into as many ranges as one wave of
+    # blocks (one block per SM) takes. More ranges cost more than a second
+    # wave saves: each range fills a top-k of its own from empty, and the
+    # merge reads them all.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    qblocks = -(-b // 64)
-    tiles = -(-n // 128)
-    nsplit = max(1, min(tiles, -(-2 * sms // qblocks)))
+    bq, bn = l2_topk_tiles()
+    qblocks = -(-b // bq)
+    tiles = -(-n // bn)
+    nsplit = max(1, min(tiles, sms // qblocks))
     nsplit = -(-tiles // -(-tiles // nsplit))  # drop empty ranges
     part_d = part_i = None
     if nsplit > 1:
@@ -113,6 +117,19 @@ def l2_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
             part_i.data_ptr() if part_i is not None else None,
             b, n, d, k, nsplit)
     return out_d, out_i
+
+
+def l2_topk_tiles() -> Tuple[int, int]:
+    """(queries, database rows) of one block of l2_topk.cu, as its
+    library reports them."""
+    if "l2_topk_tiles" not in _FNS:
+        f = _build.load("l2_topk").l2_topk_tiles
+        f.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        f.restype = None
+        _FNS["l2_topk_tiles"] = f
+    bq, bn = ctypes.c_int(), ctypes.c_int()
+    _FNS["l2_topk_tiles"](ctypes.byref(bq), ctypes.byref(bn))
+    return bq.value, bn.value
 
 
 def probe_tile() -> int:

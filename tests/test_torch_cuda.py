@@ -37,23 +37,54 @@ def _close_ids(d_k, i_k, d_r, i_r, atol):
         assert ((d_r[diff] - d_k[diff]).abs() <= atol).all()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("b,n,d,k", [(300, 5000, 128, 10), (70, 3000, 16, 1),
-                                     (5, 20_000, 24, 64), (3, 7, 16, 10),
-                                     (200, 100_000, 128, 10)])
-def test_l2_topk_kernel_matches_plain(dev, dt, b, n, d, k):
+# (queries, rows, width, k): ragged against the kernel's 128 x 128 block
+# tile, a database below one tile, odd widths, several grid.y ranges, and
+# k-means assignment (k = 1 against 1024 centroids) at a reduced batch.
+L2_SHAPES = [(300, 5000, 128, 10), (70, 3000, 16, 1), (5, 20_000, 24, 64),
+             (3, 7, 16, 10), (200, 100_000, 128, 10), (129, 1025, 24, 10),
+             (257, 100, 40, 64), (4099, 1024, 128, 1)]
+# Integer-valued data, exact in TF32 and in every f32 partial sum:
+# (name, low, high (exclusive), queries, rows, width). int8 codes take the
+# int8 range at SIFT's width.
+L2_INT_CASES = {"-8..8": (-8, 9, 130, 9000, 40),
+                "sift-0..255": (0, 256, 300, 60_000, 128)}
+
+
+def l2_float_inputs(dt, b, n, d, k):
+    """(q, x, x_sqnorm) on the CPU: normal data, int8 codes with a scaled
+    query, and every 97th row at +inf (rows that must never win)."""
     rng = np.random.default_rng(n + k)
-    q = torch.as_tensor(rng.normal(size=(b, d)), dtype=torch.float32,
-                        device=dev)
+    q = torch.as_tensor(rng.normal(size=(b, d)), dtype=torch.float32)
     if dt == "int8":
-        x = torch.as_tensor(rng.integers(-127, 128, (n, d)), device=dev
-                            ).to(torch.int8)
+        x = torch.as_tensor(rng.integers(-127, 128, (n, d))).to(torch.int8)
         q = q * 0.05
     else:
-        x = torch.as_tensor(rng.normal(size=(n, d)), device=dev).to(TDT[dt])
+        x = torch.as_tensor(rng.normal(size=(n, d))).to(TDT[dt])
     xsq = (x.float() ** 2).sum(1)
-    xsq[::97] = float("inf")        # rows that must never win
+    xsq[::97] = float("inf")
+    return q, x, xsq
+
+
+def l2_integer_inputs(dt, case):
+    """(q, x) on the CPU, integer-valued, with rows equal to x[17] planted
+    (q[0] among them), so the lowest row must come first on a tie."""
+    lo, hi, b, n, d = L2_INT_CASES[case]
+    if dt == "int8" and hi > 128:   # shifted into the int8 range
+        lo, hi = lo - 128, hi - 128
+    rng = np.random.default_rng(1)
+    q = torch.as_tensor(rng.integers(lo, hi, (b, d)), dtype=torch.float32)
+    x = torch.as_tensor(rng.integers(lo, hi, (n, d))).to(TDT[dt])
+    x[4000:4010] = x[17]            # duplicates: lowest row first
+    x[n - 1] = x[17]                # and one in the last range
+    q[0] = x[17].float()
+    return q, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b,n,d,k", L2_SHAPES)
+def test_l2_topk_kernel_matches_plain(dev, dt, b, n, d, k):
+    q, x, xsq = (t.to(dev) for t in l2_float_inputs(dt, b, n, d, k))
     before = cuda.LAUNCHES["l2_topk"]
     d_k, i_k = cuda.l2_topk(q, x, xsq, k)
     torch.cuda.synchronize()
@@ -64,15 +95,10 @@ def test_l2_topk_kernel_matches_plain(dev, dt, b, n, d, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", list(L2_INT_CASES))
 @pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
-def test_l2_topk_kernel_integer_data_exact(dev, dt):
-    rng = np.random.default_rng(1)
-    q = torch.as_tensor(rng.integers(-8, 9, (130, 40)), dtype=torch.float32,
-                        device=dev)
-    x = torch.as_tensor(rng.integers(-8, 9, (9000, 40)), device=dev).to(
-        TDT[dt])
-    x[4000:4010] = x[17]            # duplicates: lowest row first
-    q[0] = x[17].float()
+def test_l2_topk_kernel_integer_data_exact(dev, dt, case):
+    q, x = (t.to(dev) for t in l2_integer_inputs(dt, case))
     xsq = (x.float() ** 2).sum(1)
     for k in (1, 10, 64):
         got = cuda.l2_topk(q, x, xsq, k)

@@ -23,6 +23,10 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.data import vectors  # noqa: E402
 from repro_torch.kernels import cuda, ops, ref  # noqa: E402
 
+# The GPU tests' l2_topk inputs, which the split-TF32 emulation below takes
+# as they are (that module imports neither JAX nor the reference package).
+import test_torch_cuda as gpu_cases  # noqa: E402
+
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16, "int8": jnp.int8}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 
@@ -108,6 +112,75 @@ def test_l2_topk_float_data_within_tolerance(dt, atol):
     np.testing.assert_allclose(_np(d_p), np.asarray(d_r), atol=atol)
     if dt == "f32":
         assert np.mean(_np(i_p) == np.asarray(i_r)) > 0.99
+
+
+def _tf32(a):
+    """cvt.rna.tf32.f32 on the CPU: f32 rounded to TF32's 10 stored
+    mantissa bits, to nearest with ties away from zero (half of the 13
+    dropped bits added to the magnitude, then the 13 bits cleared)."""
+    bits = a.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32_l2_topk(q, x, xsq, k):
+    """l2_topk.cu's arithmetic, emulated: each operand split as a = hi + lo
+    (hi = tf32(a), lo = tf32(a - hi)), q.x taken as the three passes
+    lo.hi + hi.lo + hi.hi in f32, then the top-k as the plain version
+    selects it. Returns (dist, ids, x's lo part)."""
+    qh = _tf32(q)
+    ql = _tf32(q - qh)
+    xf = x.float()
+    xh = _tf32(xf)
+    xl = _tf32(xf - xh)
+    dot = ql @ xh.T + qh @ xl.T + qh @ xh.T
+    dist = xsq[None, :] - 2.0 * dot
+    b, n = dist.shape
+    ids = torch.arange(n, dtype=torch.int32).expand(b, -1)
+    d, i = ref.merge_topk(
+        torch.cat([torch.full((b, k), float("inf")), dist], 1),
+        torch.cat([torch.full((b, k), -1, dtype=torch.int32), ids], 1), k)
+    return d, i, xl
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    ulp = 2.0 ** -10                    # TF32's spacing in [1, 2)
+    a = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2 ** -23,
+                      1 + 3 * ulp / 2, 255.0, -2048.0, 2049.0])
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 255.0,
+                         -2048.0, 2050.0])
+    assert torch.equal(_tf32(a), want)
+
+
+@pytest.mark.parametrize("case", list(gpu_cases.L2_INT_CASES))
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
+def test_l2_topk_split_tf32_integer_data_bit_equal(dt, case):
+    """On the GPU test's integer inputs every value is exact in TF32 (its
+    lo part is 0) and every partial sum is an integer below 2^24, so the
+    three passes give the plain version's distances and ids bit for bit."""
+    q, x = gpu_cases.l2_integer_inputs(dt, case)
+    xsq = (x.float() ** 2).sum(1)
+    assert torch.equal(_tf32(q), q) and torch.equal(_tf32(x.float()),
+                                                    x.float())
+    for k in (1, 10, 64):
+        d_e, i_e, _ = _split_tf32_l2_topk(q, x, xsq, k)
+        d_r, i_r = ref.l2_topk_ref(q, x, xsq, k)
+        assert torch.equal(d_e, d_r) and torch.equal(i_e, i_r)
+    assert int(i_e[0, 0]) == 17
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("b,n,d,k", gpu_cases.L2_SHAPES)
+def test_l2_topk_split_tf32_float_data_within_tolerance(dt, b, n, d, k):
+    """On the GPU test's float inputs the three passes stay within that
+    test's tolerance; bf16 and int8 codes have no lo part, so the kernel's
+    two passes for them lose nothing."""
+    q, x, xsq = gpu_cases.l2_float_inputs(dt, b, n, d, k)
+    d_e, i_e, x_lo = _split_tf32_l2_topk(q, x, xsq, k)
+    d_r, i_r = ref.l2_topk_ref(q, x, xsq, k)
+    if dt != "f32":
+        assert not x_lo.any()
+    gpu_cases._close_ids(d_e, i_e, d_r, i_r, atol=1e-3 + 1e-5 * float(
+        xsq[torch.isfinite(xsq)].max()))
 
 
 def _probe_inputs(rng, b, c, d, k, dt):
