@@ -27,7 +27,11 @@ Phases, each fatal on failure:
               bucket_probe is also timed where the main path runs it: the
               first step of Darth.search (1000 queries) and a whole fit
               batch (256 queries through every probe rank), each beside
-              its byte bound.
+              its byte bound. gbdt_predict is timed on 256 logged rows,
+              Darth.search's features after its first step (1000 rows)
+              and the fit's hold-out (~200,000 rows): event, profiler
+              device and host enqueue time per call, beside an empty
+              kernel's time; two calls must be bit-equal.
 
 Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -37,6 +41,14 @@ TFLOP/s for f32 codes, and three bf16 passes at 989 TFLOP/s for bf16 or
 int8 codes (exact in bf16; an f32 query split in three bf16 parts carries
 f32's 24 bits). Beside it, ``f32_core_bound_ms`` counts the same flops
 once at 67 TFLOP/s (f32 on the CUDA cores), the figure earlier runs used.
+gbdt_predict's ``bound_ms`` counts its bytes (the ensemble once, B x 11
+x 4 in, B x 4 out) and operations (B x T x (depth + 1) at 67 TFLOP/s);
+both lie far below what limits it. Beside them, ``lookup_figure_ms`` = B x T x (2 depth + 1) / (32 x 132 x
+1.98e9) s: every node record, feature and leaf served from shared memory
+at 32 lookups per clock on each of 132 SMs at the 1,980 MHz boost clock,
+the figure to read device time against at large B; at small B it is the
+empty kernel's time (``launch_floor_ms`` by events, and
+``launch_floor_device_ms`` by the profiler).
 
 It imports nothing of JAX or of the ``repro`` package. Output: a JSON line
 of per-kernel results, the card's name and power limit, and last
@@ -57,6 +69,9 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12        # H100 SXM dense TF32 tensor cores
 BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+# Shared-memory lookups: 32 per clock per SM, 132 SMs, 1,980 MHz boost
+# (H100 SXM data sheet).
+SMEM_LOOKUPS_PER_S = 32 * 132 * 1.98e9
 PROFILER_PAD = 512              # spin kernels that open a profiled session
 TARGETS = (0.80, 0.90, 0.95)
 TOL = 0.03
@@ -82,7 +97,7 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled(fn):
+def profiled(fn, keep_spin=False):
     """(wall s, {kernel: device ms}, {kernel: launches}) of one fn() under
     torch.profiler, the wall time taken in the same run, the device time
     and launch count as recorded. The dicts are empty where the profiler
@@ -91,7 +106,8 @@ def profiled(fn):
     A session loses its first few device records once the process has run
     earlier sessions (none in a fresh process; up to every launch of a
     short session after the main path), so each session opens with
-    PROFILER_PAD empty spin kernels, left out of the result, before fn()."""
+    PROFILER_PAD empty spin kernels, left out of the result (kept with
+    keep_spin, for the time of an empty kernel), before fn()."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -109,7 +125,7 @@ def profiled(fn):
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0))
         if ("CUDA" in str(e.device_type) and us > 0
-                and "spin_kernel" not in e.key):
+                and (keep_spin or "spin_kernel" not in e.key)):
             by[e.key] = us / 1e3
             counts[e.key] = e.count
     return wall, by, counts
@@ -161,7 +177,7 @@ def main() -> int:
         return fail("no CUDA device")
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
-        from repro_torch.core import api, engines, training
+        from repro_torch.core import api, darth_search, engines, training
         from repro_torch.data import vectors
         from repro_torch.index import flat, ivf
         from repro_torch.kernels import _build, cuda, ref
@@ -215,6 +231,7 @@ def main() -> int:
     trained = darth.fit(ds.learn, ds.base)
     main["fit_s"] = time.time() - t0
     l2_fit = cuda.LAUNCHES["l2_topk"] - l2_build
+    gbdt_fit = cuda.LAUNCHES["gbdt_predict"]
     main["fit_split_s"] = dict(darth.fit_seconds)
     main["predictor"] = dict(trained.metrics, samples=trained.num_samples)
     print(f"[main] Darth.fit {main['fit_s']:.1f}s split "
@@ -236,7 +253,10 @@ def main() -> int:
     l2_by_phase = {"build": l2_build, "fit": l2_fit,
                    "search": launches["l2_topk"] - l2_build - l2_fit}
     main["l2_topk_launches"] = l2_by_phase
-    print(f"[main] launches {launches} l2_topk by phase {l2_by_phase}",
+    main["gbdt_predict_launches"] = {
+        "fit": gbdt_fit, "search": launches["gbdt_predict"] - gbdt_fit}
+    print(f"[main] launches {launches} l2_topk by phase {l2_by_phase} "
+          f"gbdt_predict by phase {main['gbdt_predict_launches']}",
           flush=True)
 
     xb = torch.as_tensor(ds.base, device=dev)
@@ -572,36 +592,95 @@ def main() -> int:
         "shapes": shapes, "checks": bchecks})
     del v8, sq8
 
-    # gbdt_predict: the fitted predictor on one fit batch of logged features.
+    # gbdt_predict where the main path runs it: 256 logged feature rows
+    # (the shape of earlier runs), Darth.search's features after its first
+    # step (all 1000 queries: each search step predicts for every row and
+    # masks by due) and the fit's hold-out (10% of at most 2M logged
+    # samples, as Darth.fit passes them to fit_predictor).
     p = trained.predictor.params
     log = darth._last_log
+    nt, nint = p.feat.shape
+    nf = log.features.shape[-1]
     pick = torch.randint(0, log.features.shape[0], (256,), generator=gen)
     feats = torch.as_tensor(
         log.features[pick.numpy(), torch.arange(256).numpy()], device=dev)
-    got = cuda.gbdt_predict(feats, p.feat, p.thresh, p.leaf)
-    torch.cuda.synchronize()
-    want = ref.gbdt_predict_ref(feats, p.feat, p.thresh, p.leaf)
-    errg = float((got - want).abs().max())
-    if errg > 1e-5:
-        return fail(f"gbdt_predict disagrees with plain: {errg}")
-    nt, nint = p.feat.shape
-    byts = 4.0 * (2 * nt * nint + nt * (nint + 1)) + 4.0 * 256 * 12
-    flop = 256.0 * nt * (p.depth + 1)
-    ms = cuda_ms(lambda: cuda.gbdt_predict(feats, p.feat, p.thresh, p.leaf),
-                 200)
-    plain_ms = cuda_ms(lambda: ref.gbdt_predict_ref(feats, p.feat, p.thresh,
-                                                    p.leaf), 50)
+    eng = darth.engine
+    first = eng.step(eng.index, eng.init(eng.index, q))
+    f_search = darth_search._features(eng, first).float().contiguous()
+    valid = log.features.reshape(-1, nf)[log.valid.reshape(-1)]
+    n_hold = max(1, int(0.1 * min(valid.shape[0], 2_000_000)))
+    f_hold = torch.as_tensor(valid[:n_hold], device=dev)
+    del valid
+    # An empty kernel's time in this call: the floor under any launch.
+    floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), 200)
+    _, by, counts = profiled(
+        lambda: [torch.cuda._sleep(0) for _ in range(200)], keep_spin=True)
+    spin = [k for k in by if "spin_kernel" in k]
+    if not spin:
+        return fail(f"torch.profiler recorded no spin kernel: {by}")
+    floor_dev = by[spin[0]] / counts[spin[0]]
+    # The launch plan, where the wrapper reports one (an older tree of the
+    # port, timed with this script for comparison, does not).
+    plan = getattr(cuda, "gbdt_plan", None)
+    gshapes = []
+    for case, xx, nl, reps in (
+            ("256 logged rows", feats, 0, 200),
+            ("Darth.search first step", f_search, launches["gbdt_predict"]
+             - gbdt_fit, 200),
+            ("fit hold-out", f_hold, gbdt_fit, 50)):
+        gargs = (xx, p.feat, p.thresh, p.leaf)
+        got = cuda.gbdt_predict(*gargs)
+        again = cuda.gbdt_predict(*gargs)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            return fail(f"gbdt_predict is not deterministic ({case})")
+        want = ref.gbdt_predict_ref(*gargs)
+        errg = float((got - want).abs().max())
+        if errg > 1e-5:
+            return fail(f"gbdt_predict disagrees with plain ({case}): {errg}")
+        b = xx.shape[0]
+        byts = 4.0 * (2 * nt * nint + nt * (nint + 1)) + 4.0 * b * (nf + 1)
+        flop = float(b) * nt * (p.depth + 1)
+        t_b, t_f = byts / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
+        row = {"case": case, "shape": f"x[{b},{nf}] trees={nt} "
+               f"depth={p.depth}", "B": b, "launches": nl,
+               "max_abs_err": errg, "bit_equal": True,
+               "ms": cuda_ms(lambda: cuda.gbdt_predict(*gargs), reps),
+               "plain_ms": cuda_ms(lambda: ref.gbdt_predict_ref(*gargs), 5),
+               "bound_ms": 1e3 * max(t_b, t_f),
+               "bound_by": "bytes" if t_b >= t_f else "operations",
+               "lookup_figure_ms": 1e3 * b * nt * (2 * p.depth + 1)
+               / SMEM_LOOKUPS_PER_S,
+               "launch_floor_ms": floor_ms,
+               "launch_floor_device_ms": floor_dev,
+               "plan": plan(b, nf, nt, p.depth) if plan else None}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            cuda.gbdt_predict(*gargs)
+        row["host_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        _, by, counts = profiled(lambda: [cuda.gbdt_predict(*gargs)
+                                          for _ in range(reps)])
+        row["kernels_ms"] = kernels_ms(by, counts, "gbdt")
+        row["profiled_launches"] = {k: counts[k] for k in by if "gbdt" in k}
+        row["profiled_calls"] = reps
+        if "gbdt_predict_kernel" not in row["kernels_ms"]:
+            return fail(f"torch.profiler recorded no gbdt_predict kernel: "
+                        f"{by}")
+        row["device_ms"] = sum(row["kernels_ms"].values())
+        gshapes.append(row)
+        print(f"[kernels] gbdt_predict {row}", flush=True)
+    top = gshapes[0]
     kernels.append({
         "name": "gbdt_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gbdt_predict.cu",
         "replaces": "src/repro/kernels/gbdt_predict.py:24",
-        "launches": launches["gbdt_predict"], "max_abs_err": errg,
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(byts / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S),
-        "bound_by": "bytes" if byts / HBM_BYTES_PER_S
-        >= flop / F32_FLOP_PER_S else "operations",
-        "library_ms": None,
-        "shape": f"x[256,11] trees={nt} depth={p.depth}"})
+        "launches": launches["gbdt_predict"],
+        "max_abs_err": max(r["max_abs_err"] for r in gshapes),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": None, "shape": top["shape"], "shapes": gshapes})
 
     kname = torch.cuda.get_device_name(0)
     out = {"card": card, "kind": kname, "torch": torch.__version__,

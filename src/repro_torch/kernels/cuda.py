@@ -218,3 +218,25 @@ def gbdt_predict(x: torch.Tensor, feat: torch.Tensor, thresh: torch.Tensor,
             thresh.data_ptr(), leaf.data_ptr(), out.data_ptr(), b, f, t,
             depth)
     return out
+
+
+GBDT_PLAN_KEYS = ("rows_tile", "slices", "chunk", "nchunks", "tree_smem",
+                  "x_smem", "grid", "rows_per_block", "smem_bytes")
+
+
+def gbdt_plan(b: int, f: int, t: int, depth: int) -> Dict[str, int]:
+    """How gbdt_predict.cu launches on B rows of F features and T trees of
+    this depth on the current card, as its library reports it: rows per
+    tile, tree slices per block, trees per staged chunk, chunks, whether
+    the trees and x are staged in shared memory, blocks, rows per block
+    and dynamic shared memory in bytes."""
+    if "gbdt_predict_plan" not in _FNS:
+        fn = _build.load("gbdt_predict").gbdt_predict_plan
+        fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _FNS["gbdt_predict_plan"] = fn
+    out = (ctypes.c_int * len(GBDT_PLAN_KEYS))()
+    rc = _FNS["gbdt_predict_plan"](b, f, t, depth, out)
+    if rc != 0:
+        raise RuntimeError(f"gbdt_predict_plan failed: CUDA error {rc}")
+    return dict(zip(GBDT_PLAN_KEYS, out))

@@ -214,23 +214,46 @@ def test_bucket_probe_kernel_float_data(dev):
     assert torch.equal(got[2], want[2])
 
 
+# (trees, depth, rows, features) and the path the launch plan takes there
+# on an H100 (132 SMs): trees staged in shared memory, x staged, trees
+# staged in more than one chunk. The main config (100 trees of depth 6, 11
+# features) from one row to blocks looping over row tiles (and at 20,000
+# rows, tiles of 256 rows with the trees split over 4 warps), a small
+# ensemble, ensembles staged in chunks (few rows, and many rows with two
+# tiles a block), trees too large for shared memory (read from device
+# memory) and x rows too wide for their tile, alone and together.
+GBDT_CASES = [(100, 6, 1, 11, 1, 1, 0), (100, 6, 37, 11, 1, 1, 0),
+              (100, 6, 1000, 11, 1, 1, 0), (100, 6, 20_000, 11, 1, 1, 0),
+              (100, 6, 70_000, 11, 1, 1, 0),
+              (7, 3, 1000, 11, 1, 1, 0), (600, 6, 1000, 11, 1, 1, 1),
+              (600, 6, 150_000, 11, 1, 1, 1), (20, 4, 70_000, 40, 1, 0, 0),
+              (3, 15, 1000, 11, 0, 1, 0), (3, 15, 70_000, 40, 0, 0, 0)]
+
+
 @pytest.mark.gpu
-def test_gbdt_kernel_matches_plain(dev):
+@pytest.mark.parametrize("t,depth,b,f,tree_smem,x_smem,chunked", GBDT_CASES)
+def test_gbdt_kernel_matches_plain(dev, t, depth, b, f, tree_smem, x_smem,
+                                   chunked):
+    plan = cuda.gbdt_plan(b, f, t, depth)
+    assert (plan["tree_smem"], plan["x_smem"], plan["nchunks"] > 1) == (
+        tree_smem, x_smem, bool(chunked)), plan
     rng = np.random.default_rng(4)
-    t, depth, f = 100, 6, 11
     feat = rng.integers(-1, f, (t, 2 ** depth - 1)).astype(np.int32)
     thresh = rng.normal(size=(t, 2 ** depth - 1)).astype(np.float32)
     thresh[:, ::7] = np.inf
     leaf = (rng.normal(size=(t, 2 ** depth)) * 0.01).astype(np.float32)
     feat, thresh, leaf = (torch.as_tensor(a, device=dev)
                           for a in (feat, thresh, leaf))
-    for b in (1, 37, 1000):
-        x = torch.as_tensor(rng.normal(size=(b, f)), dtype=torch.float32,
-                            device=dev)
-        x[0, 3] = thresh[0, 0] if torch.isfinite(thresh[0, 0]) else 0.0
-        got = cuda.gbdt_predict(x, feat, thresh, leaf)
-        want = ref.gbdt_predict_ref(x, feat, thresh, leaf)
-        assert torch.allclose(got, want, atol=1e-5, rtol=0)
+    x = torch.as_tensor(rng.normal(size=(b, f)), dtype=torch.float32,
+                        device=dev)
+    x[0, 3] = thresh[0, 0] if torch.isfinite(thresh[0, 0]) else 0.0
+    # A row exactly on the root's threshold of tree 0 goes left.
+    x[-1, max(int(feat[0, 0]), 0)] = thresh[0, 0].clamp(max=1e30)
+    got = cuda.gbdt_predict(x, feat, thresh, leaf)
+    want = ref.gbdt_predict_ref(x, feat, thresh, leaf)
+    assert torch.allclose(got, want, atol=1e-5, rtol=0)
+    # No atomics: a second call on the same inputs is bit-equal.
+    assert torch.equal(got, cuda.gbdt_predict(x, feat, thresh, leaf))
 
 
 @pytest.mark.gpu
