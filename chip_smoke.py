@@ -21,7 +21,9 @@ Phases, each fatal on failure:
               distance kernels), with times of the kernel, the plain version
               and, for l2_topk, one PyTorch call computing the same function.
               l2_topk is timed at its three shapes (the fit's ground truth,
-              k-means assignment, int8 codes), each with the profiler's
+              k-means assignment, int8 codes) and at the HNSW path's
+              (its fit's ground truth over HNSW_N rows), each with the
+              profiler's
               device time per kernel, and must be bit-equal to its plain
               version on SIFT-range integer data (0..255, D = 128).
               bucket_probe is also timed where the main path runs it: the
@@ -32,6 +34,20 @@ Phases, each fatal on failure:
               and the fit's hold-out (~200,000 rows): event, profiler
               device and host enqueue time per call, beside an empty
               kernel's time; two calls must be bit-equal.
+4. hnsw path: DARTH-on-HNSW as a user runs it, on the first
+              ``HNSW_N`` rows (750,000) of the same collection:
+              ``hnsw.build`` (the reference's defaults: m 16,
+              ef_construction 64, two passes, alpha 1.2) -> ``Darth.fit``
+              -> ``search_plain`` -> ``Darth.search`` at 0.80 / 0.90 / 0.95,
+              with ``hnsw_engine(k=10, ef=384, max_steps=1200)`` (the
+              reference's benchmark setting). The counts are zeroed just
+              before the build and read just after the last search;
+              l2_topk (the fit's ground truth) and gbdt_predict (the
+              predictor) must each have run, and each mean recall@10 must
+              reach its target - 0.03. A line flagged ``FLAG`` says so
+              when no query was ever due for a prediction (``npred`` 0 at
+              every target), beside each target's interval. Then one fit
+              batch's step log is timed and profiled, as in phase 2.
 
 Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -50,9 +66,10 @@ the figure to read device time against at large B; at small B it is the
 empty kernel's time (``launch_floor_ms`` by events, and
 ``launch_floor_device_ms`` by the profiler).
 
-It imports nothing of JAX or of the ``repro`` package. Output: a JSON line
-of per-kernel results, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``. Full results also go to
+It imports nothing of JAX or of the ``repro`` package. Output: JSON lines
+of each path's results and of per-kernel results (``launches`` summed
+over both paths, ``launches_by_path`` split), the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``. Full results also go to
 ``results/chip_smoke.json``. Without a CUDA card, or without the
 repository around it, it exits non-zero and prints no result.
 """
@@ -75,6 +92,12 @@ SMEM_LOOKUPS_PER_S = 32 * 132 * 1.98e9
 PROFILER_PAD = 512              # spin kernels that open a profiled session
 TARGETS = (0.80, 0.90, 0.95)
 TOL = 0.03
+# Rows of the collection the HNSW phase indexes. At ef 384 the graph's
+# plain recall@10 on this collection falls with N: 0.9631 at 500,000,
+# 0.9253 at 750,000 and 0.8938 at 1M (NVIDIA H100, tools/hnsw_recall_sweep.py;
+# PERF.md section 4), so 1M fails the 0.95 target's gate of 0.92 and
+# 750,000 is the largest of these that meets it.
+HNSW_N = 750_000
 
 
 def fail(msg: str) -> int:
@@ -160,6 +183,139 @@ def topk_agreement(d_k, i_k, d_r, i_r, tol):
     return max_err, float((~diff).float().mean()), dist_ok and ids_ok
 
 
+def step_log_trace(engine, ql, gt_l):
+    """One fit batch's step log (``ql`` queries x the engine's max_steps,
+    as Darth.fit runs it): wall without the profiler, then wall and device
+    time by kernel of one run under it, whose ratio is the device's idle
+    share (the profiler's own cost included). Returns (trace, device ms by
+    kernel), or (None, {}) if the profiler recorded no device time."""
+    import torch
+    from repro_torch.core import training
+    torch.cuda.synchronize()
+    t0 = time.time()
+    training.generate_observations(engine, ql, gt_l)
+    torch.cuda.synchronize()
+    trace = {"wall_s": time.time() - t0}
+    pwall, by, _ = profiled(lambda: training.generate_observations(
+        engine, ql, gt_l))
+    if not by:
+        return None, by
+    busy = sum(by.values()) / 1e3
+    trace.update({
+        "profiled_wall_s": pwall, "device_busy_s": busy,
+        "idle_share": 1.0 - busy / pwall,
+        "top_kernels_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])
+                               [:6])})
+    return trace, by
+
+
+def hnsw_path(base, learn, q):
+    """Phase 4: DARTH-on-HNSW through the port's entry points over
+    ``base``. Returns (results, launches by kernel on this path,
+    failures)."""
+    import torch
+    from repro_torch.core import api, engines
+    from repro_torch.index import flat, hnsw
+    from repro_torch.kernels import cuda
+    out = {}
+    nq = q.shape[0]
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.time()
+    split = {}
+    # 8192 rows a batch: the build's [chunk, N] visited bitmap takes 6 GB
+    # at N = 750,000 (the graph does not depend on the chunk).
+    index = hnsw.build(base, m=16, ef_construction=64, passes=2,
+                       alpha=1.2, seed=0, chunk=8192, device="cuda",
+                       seconds=split)
+    torch.cuda.synchronize()
+    out["build_s"] = time.time() - t0
+    out["build_split_s"] = split
+    deg = (index.neighbors >= 0).sum(1).float()
+    out["degree_mean"] = float(deg.mean())
+    print(f"[hnsw] hnsw.build n={index.num_vectors} m={index.degree} "
+          f"R={index.route_ids.shape[0]} mean degree {out['degree_mean']:.2f}"
+          f" ({out['build_s']:.1f}s) split "
+          + " ".join(f"{k}={v:.1f}s" for k, v in split.items()), flush=True)
+    darth = api.Darth(
+        make_engine=lambda **kw: engines.hnsw_engine(index, **kw),
+        engine=engines.hnsw_engine(index, k=10, ef=384, max_steps=1200))
+    t0 = time.time()
+    trained = darth.fit(learn, base)
+    out["fit_s"] = time.time() - t0
+    out["fit_split_s"] = dict(darth.fit_seconds)
+    out["predictor"] = dict(trained.metrics, samples=trained.num_samples)
+    print(f"[hnsw] Darth.fit learn={learn.shape[0]} {out['fit_s']:.1f}s split "
+          + " ".join(f"{k}={v:.1f}s" for k, v in darth.fit_seconds.items())
+          + f" mse={trained.metrics['mse']:.5f}", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, plain_i, plain = darth.search_plain(q)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    results = {}
+    for rt in TARGETS:
+        t0 = time.time()
+        _, ids, st = darth.search(q, rt)
+        torch.cuda.synchronize()
+        results[rt] = (ids, st, time.time() - t0)
+    launches = dict(cuda.LAUNCHES)
+    print(f"[hnsw] launches {launches}", flush=True)
+
+    _, gt = flat.search(q, index.vectors, 10)
+    plain_ndis = float(plain.ndis.float().mean())
+    nroute = index.route_ids.shape[0]
+    out["plain"] = {
+        "recall": float(flat.recall_at_k(plain_i, gt).mean()),
+        "ndis": plain_ndis, "qps": nq / plain_s,
+        "steps": int(plain.nstep.max()), "route_ndis": nroute}
+    print(f"[hnsw] plain  recall={out['plain']['recall']:.4f} "
+          f"ndis={plain_ndis:.0f} (R={nroute}) qps={out['plain']['qps']:.0f} "
+          f"steps={out['plain']['steps']}", flush=True)
+    failures = []
+    out["targets"] = {}
+    for rt, (ids, st, secs) in results.items():
+        rec = float(flat.recall_at_k(ids, gt).mean())
+        nd = float(st.inner.ndis.float().mean())
+        params = darth.interval_params(rt)
+        row = {"recall": rec, "ndis": nd, "speedup_ndis": plain_ndis / nd,
+               "qps": nq / secs, "npred": float(st.npred.float().mean()),
+               "steps": st.steps, "ipi": float(params.ipi),
+               "mpi": float(params.mpi)}
+        out["targets"][str(rt)] = row
+        print(f"[hnsw] target {rt:.2f} recall={rec:.4f} ndis={nd:.0f} "
+              f"speedup={row['speedup_ndis']:.2f}x qps={row['qps']:.0f} "
+              f"npred={row['npred']:.2f} steps={st.steps} "
+              f"ipi={row['ipi']:.0f} mpi={row['mpi']:.0f}", flush=True)
+        if rec < rt - TOL:
+            failures.append(f"hnsw recall {rec:.4f} below target {rt} - "
+                            f"{TOL}")
+    if all(r["npred"] == 0 for r in out["targets"].values()):
+        # Not fatal: the search still meets every target as plain search
+        # does, but no DARTH-on-HNSW decision was made on the card.
+        out["flag"] = (
+            f"npred is 0 at every target: no query was due for a "
+            f"prediction; a plain search adds {plain_ndis - nroute:.0f} "
+            f"distances after the routing scan's R = {nroute}, and the "
+            f"smallest first interval is "
+            f"{min(r['ipi'] for r in out['targets'].values()):.0f}")
+        print(f"[hnsw] FLAG: {out['flag']}", flush=True)
+    for name in ("l2_topk", "gbdt_predict"):
+        if launches[name] < 1:
+            failures.append(f"kernel {name} was not launched on the hnsw path")
+    if failures:
+        return out, launches, failures
+
+    ql = torch.as_tensor(learn[:256], device="cuda")
+    _, gt_l = flat.search(ql, index.vectors, 10)
+    trace, _ = step_log_trace(darth.engine, ql, gt_l)
+    if trace is None:
+        return out, launches, ["torch.profiler recorded no device time"]
+    out["step_log_batch"] = trace
+    print(f"[hnsw] one fit batch's step log: {trace}", flush=True)
+    return out, launches, []
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -177,7 +333,7 @@ def main() -> int:
         return fail("no CUDA device")
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
-        from repro_torch.core import api, darth_search, engines, training
+        from repro_torch.core import api, darth_search, engines
         from repro_torch.data import vectors
         from repro_torch.index import flat, ivf
         from repro_torch.kernels import _build, cuda, ref
@@ -288,28 +444,14 @@ def main() -> int:
         return fail("; ".join(failures))
 
     # Where one fit batch's step log (256 learn queries x nprobe steps, as
-    # Darth.fit runs it) spends its time: wall without the profiler, then
-    # wall and device time by kernel of one run under it, whose ratio is
-    # the device's idle share (the profiler's own cost included).
+    # Darth.fit runs it) spends its time.
     ql = torch.as_tensor(ds.learn[:256], device=dev)
     _, gt_l = flat.search(ql, xb, 10)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    training.generate_observations(darth.engine, ql, gt_l)
-    torch.cuda.synchronize()
-    trace = {"wall_s": time.time() - t0}
-    pwall, by, _ = profiled(lambda: training.generate_observations(
-        darth.engine, ql, gt_l))
-    if not by:
+    trace, by = step_log_trace(darth.engine, ql, gt_l)
+    if trace is None:
         return fail("torch.profiler recorded no device time")
-    busy = sum(by.values()) / 1e3
-    trace.update({
-        "profiled_wall_s": pwall, "device_busy_s": busy,
-        "idle_share": 1.0 - busy / pwall,
-        "bucket_probe_s": sum(ms for key, ms in by.items()
-                              if "probe" in key) / 1e3,
-        "top_kernels_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])
-                               [:6])})
+    trace["bucket_probe_s"] = sum(ms for key, ms in by.items()
+                                  if "probe" in key) / 1e3
     main["step_log_batch"] = trace
     print(f"[trace] one fit batch's step log: {trace}", flush=True)
 
@@ -335,7 +477,10 @@ def main() -> int:
         ("k-means assignment, f32", x[:65536], cents, (cents ** 2).sum(1), 1,
          l2_by_phase["build"], 20),
         ("int8 codes", (qg * scale).contiguous(), x8,
-         ((x8.float() * scale + offset) ** 2).sum(1), 10, 0, 5)]
+         ((x8.float() * scale + offset) ** 2).sum(1), 10, 0, 5),
+        # Its launches are the HNSW path's, counted in phase 4.
+        ("HNSW fit ground truth, f32", qg, x[:HNSW_N], xsq[:HNSW_N], 10, 0,
+         5)]
 
     def l2_bound(qq, xx, kk):
         """Both bounds of one l2_topk call, as the module docstring states."""
@@ -682,14 +827,28 @@ def main() -> int:
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None, "shape": top["shape"], "shapes": gshapes})
 
+    # -- 4. hnsw path ----------------------------------------------------------
+    hnsw_out, hnsw_launches, failures = hnsw_path(ds.base[:HNSW_N],
+                                                  ds.learn, q)
+    if failures:
+        return fail("; ".join(failures))
+    l2_shapes[-1]["launches"] = hnsw_launches["l2_topk"]
+    for row in kernels:
+        by_path = {"ivf": launches[row["name"]],
+                   "hnsw": hnsw_launches[row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+
     kname = torch.cuda.get_device_name(0)
     out = {"card": card, "kind": kname, "torch": torch.__version__,
-           "args": vars(args), "main_path": main, "kernels": kernels,
-           "launches": launches}
+           "args": vars(args), "main_path": main, "hnsw_path": hnsw_out,
+           "kernels": kernels, "launches": launches,
+           "hnsw_launches": hnsw_launches}
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
     with open(os.path.join(HERE, "results", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1, default=float)
     print(json.dumps({"main_path": main}, default=float))
+    print(json.dumps({"hnsw_path": hnsw_out}, default=float))
     print(json.dumps({"kernels": kernels}, default=float))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,7 @@ same predictor.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 from repro_torch.core.predictor import RecallPredictor
 from repro_torch.core.training import TrainedDarth
 from repro_torch.gbdt.model import GBDTParams, from_state_dict
+from repro_torch.index.hnsw import HNSWIndex
 from repro_torch.index.ivf import IVFIndex
 
 _IVF_DTYPES = {
@@ -27,6 +29,41 @@ _IVF_DTYPES = {
     "offset": (np.float32,),
     "hot_map": (np.int32,),
 }
+_HNSW_DTYPES = {
+    "vectors": (np.float32, np.int8),
+    "sqnorm": (np.float32,),
+    "neighbors": (np.int32,),
+    "entry": (np.int32,),
+    "route_ids": (np.int32,),
+    "scale": (np.float32,),
+    "offset": (np.float32,),
+}
+
+
+def fields_as_numpy(obj: Any) -> Dict[str, np.ndarray]:
+    """The set fields of one of the reference's dataclasses (an index), as
+    numpy arrays by name: what the index loaders below take."""
+    return {f.name: np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None}
+
+
+def _tensors(arrays: Mapping[str, Any], dtypes: Mapping[str, tuple],
+             optional: tuple, what: str, device) -> Dict[str, torch.Tensor]:
+    """The named arrays as tensors on ``device``, each dtype checked; an
+    ``optional`` field may be missing or None."""
+    fields = {}
+    for name, allowed in dtypes.items():
+        v = arrays.get(name)
+        if v is None:
+            if name not in optional:
+                raise KeyError(f"{what} array {name!r} missing")
+            continue
+        v = np.asarray(v)
+        if v.dtype not in [np.dtype(t) for t in allowed]:
+            raise TypeError(f"{name}: dtype {v.dtype} not in {allowed}")
+        fields[name] = torch.as_tensor(np.array(v), device=device)
+    return fields
 
 
 def ivf_index_from_numpy(arrays: Mapping[str, Any], device="cuda"
@@ -34,18 +71,22 @@ def ivf_index_from_numpy(arrays: Mapping[str, Any], device="cuda"
     """An IVFIndex from the reference's fields (``dataclasses.asdict`` of
     ``repro.index.ivf.IVFIndex`` after ``np.asarray``). dtypes are kept:
     f32 or int8 (SQ8) codes, int32 ids and sizes."""
-    fields = {}
-    for name, dtypes in _IVF_DTYPES.items():
-        v = arrays.get(name)
-        if v is None:
-            if name != "hot_map":
-                raise KeyError(f"IVF index array {name!r} missing")
-            continue
-        v = np.asarray(v)
-        if v.dtype not in [np.dtype(t) for t in dtypes]:
-            raise TypeError(f"{name}: dtype {v.dtype} not in {dtypes}")
-        fields[name] = torch.as_tensor(np.array(v), device=device)
-    return IVFIndex(**fields)
+    return IVFIndex(**_tensors(arrays, _IVF_DTYPES, ("hot_map",), "IVF index",
+                               device))
+
+
+def hnsw_index_from_numpy(arrays: Mapping[str, Any], device="cuda"
+                          ) -> HNSWIndex:
+    """An HNSWIndex from the reference's fields (``repro.index.hnsw.
+    HNSWIndex`` after ``np.asarray``): f32 or int8 (SQ8) vectors, int32
+    adjacency, entry and routing sample. ``scale``/``offset`` are None for
+    f32 vectors and required for int8 codes."""
+    fields = _tensors(arrays, _HNSW_DTYPES, ("scale", "offset"), "HNSW index",
+                      device)
+    if fields["vectors"].dtype == torch.int8 and (
+            "scale" not in fields or "offset" not in fields):
+        raise KeyError("HNSW index: int8 vectors need scale and offset")
+    return HNSWIndex(**fields)
 
 
 def gbdt_params_from_numpy(state_dict: Mapping[str, Any], device="cuda"

@@ -64,7 +64,7 @@ class Darth:
 
     @property
     def device(self) -> torch.device:
-        return self.engine.index.centroids.device
+        return self.engine.index.device
 
     def _on_device(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)

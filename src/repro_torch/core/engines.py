@@ -2,8 +2,8 @@
 
 DARTH's driver (darth_search.py) is engine-agnostic: anything that exposes
 init/step plus the counters the features need can be driven to a
-declarative recall target (paper §3.3). This slice of the port carries
-the IVF engine.
+declarative recall target (paper §3.3): the IVF probe loop and the HNSW
+beam loop share it.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.index import hnsw as hnsw_lib
 from repro_torch.index import ivf as ivf_lib
 
 
@@ -47,5 +48,24 @@ def ivf_engine(index: ivf_lib.IVFIndex, *, k: int, nprobe: int) -> Engine:
         nstep=lambda s: s.probe_pos,
         max_steps=nprobe,
         name="ivf",
+        k=k,
+    )
+
+
+def hnsw_engine(index: hnsw_lib.HNSWIndex, *, k: int, ef: int,
+                max_steps: int = 0, visited_width: int = 0) -> Engine:
+    """The beam loop; ``max_steps`` defaults to 8 * ef. ``visited_width``
+    > 0 swaps the exact [B, N] visited bitmap for a hashed filter
+    [B, visited_width] (a power of two < N; see hnsw.init_state)."""
+    return Engine(
+        index=index,
+        init=lambda idx, q: hnsw_lib.init_state(
+            idx, q, ef=ef, visited_width=visited_width),
+        step=lambda idx, s: hnsw_lib.beam_step(idx, s, k=k),
+        topk_d=lambda s: s.cand_d[:, :k],
+        topk_i=lambda s: s.cand_i[:, :k],
+        nstep=lambda s: s.nstep,
+        max_steps=max_steps or 8 * ef,
+        name="hnsw",
         k=k,
     )

@@ -1,1 +1,1 @@
-"""ANN index substrate: exact flat search, IVF, k-means."""
+"""ANN index substrate: exact flat search, IVF, k-means, HNSW."""

@@ -58,6 +58,10 @@ class IVFIndex:
     def num_vectors(self) -> int:
         return int(self.bucket_sizes.sum())
 
+    @property
+    def device(self) -> torch.device:
+        return self.centroids.device
+
 
 def quantize_sq8(x: np.ndarray, scale: np.ndarray, offset: np.ndarray
                  ) -> Tuple[np.ndarray, np.ndarray, int]:

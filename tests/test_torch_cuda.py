@@ -269,3 +269,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         cuda.l2_topk(q, x.t().contiguous().t(), xsq, 4)
     with pytest.raises(ValueError):
         cuda.l2_topk(q, x.cpu(), xsq, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [0, 256])
+def test_hnsw_build_and_search_on_the_card_equal_the_cpu(dev, width):
+    """hnsw.build -> search on the card against the same on the CPU. On
+    SIFT-range integers every distance is exact in f32 (the card's matmuls
+    stay f32: TF32 is off), so the graphs and the searches must be equal,
+    with the exact visited bitmap and with the hashed filter (width 256)."""
+    from repro_torch.index import hnsw
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 256, (3000, 32)).astype(np.float32)
+    x[10:14] = x[3]                 # duplicates: ties
+    q = rng.integers(0, 256, (40, 32)).astype(np.float32)
+    q[0] = x[3]
+    kw = dict(m=12, ef_construction=32, passes=2, chunk=1024, seed=0)
+    g_dev = hnsw.build(x, device=dev, **kw)
+    g_cpu = hnsw.build(x, device="cpu", **kw)
+    for name in ("neighbors", "entry", "route_ids", "sqnorm"):
+        assert torch.equal(getattr(g_dev, name).cpu(), getattr(g_cpu, name))
+    out_dev = hnsw.search(g_dev, torch.as_tensor(q, device=dev), k=10, ef=64,
+                          visited_width=width)
+    out_cpu = hnsw.search(g_cpu, torch.as_tensor(q), k=10, ef=64,
+                          visited_width=width)
+    for a, b in zip(out_dev[:2], out_cpu[:2]):
+        assert torch.equal(a.cpu(), b)
+    for name in ("ndis", "ninserts", "nstep", "visited"):
+        assert torch.equal(getattr(out_dev[2], name).cpu(),
+                           getattr(out_cpu[2], name))

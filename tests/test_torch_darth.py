@@ -2,7 +2,8 @@
 
 With the reference's index (integer vectors, rounded centroids) and its
 fitted predictor and dists_Rt carried across with ``repro_torch.convert``,
-the port's per-query decisions must equal the reference's. Eagerly, the
+the port's per-query decisions must equal the reference's. The same holds
+on a graph built by the reference, through the HNSW beam loop. Eagerly, the
 features are equal bit for bit (they are summed left to right, as XLA's
 CPU reduction does for rows of 10); inside the reference's jitted loop
 XLA's sqrt may be 1 ulp off, and the GBDT's sum over 100 trees is taken
@@ -14,6 +15,10 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the test lane runs six workers on a few cores, and
+# torch's default pool (a thread per core in every worker) oversubscribes
+# them, which made these tests many times slower there.
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -25,6 +30,7 @@ from repro.core import engines as ref_engines  # noqa: E402
 from repro.core import features as ref_features  # noqa: E402
 from repro.core import intervals as ref_intervals  # noqa: E402
 from repro.core import training as ref_training  # noqa: E402
+from repro.index import hnsw as ref_hnsw  # noqa: E402
 from repro.index import ivf as ref_ivf  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import api, darth_search, engines, features  # noqa: E402
@@ -91,10 +97,9 @@ def test_predict_equals_reference():
                                    want, atol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def carried():
-    """Reference index + reference-fitted predictor, and the port's copies."""
-    rng = np.random.default_rng(4)
+def _clustered(seed):
+    """Integer-valued clustered base, learn and query sets."""
+    rng = np.random.default_rng(seed)
     centers = rng.integers(-12, 13, (24, 16))
     x = (centers[rng.integers(0, 24, 2000)]
          + rng.integers(-4, 5, (2000, 16))).astype(np.float32)
@@ -102,10 +107,12 @@ def carried():
              + rng.integers(-6, 7, (300, 16))).astype(np.float32)
     q = (centers[rng.integers(0, 24, 48)]
          + rng.integers(-6, 7, (48, 16))).astype(np.float32)
-    ref_index = ref_ivf.build(x, nlist=NLIST, seed=0)
-    ref_index = dataclasses.replace(ref_index,
-                                    centroids=jnp.round(ref_index.centroids))
-    ref_engine = ref_engines.ivf_engine(ref_index, k=K, nprobe=NLIST)
+    return x, learn, q
+
+
+def _fitted_pair(ref_engine, engine, x, learn):
+    """The reference's Darth fitted on ``ref_engine``, and the port's on
+    ``engine`` around the same predictor and dists_Rt."""
     _, gt = ref_training.ground_truth(jnp.asarray(learn), jnp.asarray(x), K)
     log = ref_training.generate_observations(ref_engine, jnp.asarray(learn),
                                              gt, batch=128)
@@ -114,26 +121,45 @@ def carried():
                                      min_child_weight=5.0))
     ref_darth = ref_api.Darth(make_engine=None, engine=ref_engine,
                               trained=trained)
-    arrays = {f.name: np.asarray(getattr(ref_index, f.name))
-              for f in dataclasses.fields(ref_index)
-              if getattr(ref_index, f.name) is not None}
-    index = convert.ivf_index_from_numpy(arrays, "cpu")
-    engine = engines.ivf_engine(index, k=K, nprobe=NLIST)
     port_darth = api.Darth(
         make_engine=None, engine=engine,
         trained=convert.trained_from_numpy(
             ref_gbdt.to_state_dict(trained.predictor.params),
             trained.dists_rt, "cpu"))
-    return ref_darth, port_darth, q
+    return ref_darth, port_darth
+
+
+@pytest.fixture(scope="module")
+def carried():
+    """Reference index + reference-fitted predictor, and the port's copies."""
+    x, learn, q = _clustered(4)
+    ref_index = ref_ivf.build(x, nlist=NLIST, seed=0)
+    ref_index = dataclasses.replace(ref_index,
+                                    centroids=jnp.round(ref_index.centroids))
+    index = convert.ivf_index_from_numpy(convert.fields_as_numpy(ref_index),
+                                         "cpu")
+    return (*_fitted_pair(ref_engines.ivf_engine(ref_index, k=K, nprobe=NLIST),
+                          engines.ivf_engine(index, k=K, nprobe=NLIST),
+                          x, learn), q)
+
+
+@pytest.fixture(scope="module")
+def carried_hnsw():
+    """The same for a graph built by the reference (the beam loop)."""
+    x, learn, q = _clustered(7)
+    ref_index = ref_hnsw.build(x, m=12, passes=1, ef_construction=32, seed=0)
+    index = convert.hnsw_index_from_numpy(
+        convert.fields_as_numpy(ref_index), "cpu")
+    kw = dict(k=K, ef=48, max_steps=160)
+    return (*_fitted_pair(ref_engines.hnsw_engine(ref_index, **kw),
+                          engines.hnsw_engine(index, **kw), x, learn), q)
 
 
 def _mixed(n):
     return np.resize(np.array([0.8, 0.9, 0.95, 0.99], np.float32), n)
 
 
-@pytest.mark.parametrize("target", [0.8, 0.9, 0.95, "mixed"])
-def test_darth_search_decisions_equal_reference(carried, target):
-    ref_darth, port_darth, q = carried
+def _assert_same_decisions(ref_darth, port_darth, q, target):
     rt = _mixed(q.shape[0]) if target == "mixed" else target
     _, i_r, st_r = ref_darth.search(jnp.asarray(q), rt)
     _, i_p, st_p = port_darth.search(q, rt)
@@ -147,6 +173,16 @@ def test_darth_search_decisions_equal_reference(carried, target):
                                   np.asarray(st_r.inner.ndis))
     if target != "mixed":
         assert st_p.early.any()  # the predictor really stopped queries
+
+
+@pytest.mark.parametrize("target", [0.8, 0.9, 0.95, "mixed"])
+def test_darth_search_decisions_equal_reference(carried, target):
+    _assert_same_decisions(*carried, target)
+
+
+@pytest.mark.parametrize("target", [0.8, 0.9, 0.95, "mixed"])
+def test_darth_search_hnsw_decisions_equal_reference(carried_hnsw, target):
+    _assert_same_decisions(*carried_hnsw, target)
 
 
 def test_plain_and_budget_search_equal_reference(carried):

@@ -40,8 +40,17 @@ def test_port_imports_without_jax_or_reference():
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default is usable")
-    from repro_torch.index import ivf
+    from repro_torch import convert
+    from repro_torch.index import hnsw, ivf
     x = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
     with pytest.raises((AssertionError, RuntimeError)):
         ivf.build(x, nlist=4)
     ivf.build(x, nlist=4, device="cpu")  # the CPU when asked for
+    with pytest.raises((AssertionError, RuntimeError)):
+        hnsw.build(x, m=4, ef_construction=8, passes=1)
+    graph = hnsw.build(x, m=4, ef_construction=8, passes=1, device="cpu")
+    arrays = {name: getattr(graph, name).numpy() for name in
+              ("vectors", "sqnorm", "neighbors", "entry", "route_ids")}
+    with pytest.raises((AssertionError, RuntimeError)):
+        convert.hnsw_index_from_numpy(arrays)
+    assert convert.hnsw_index_from_numpy(arrays, "cpu").device.type == "cpu"

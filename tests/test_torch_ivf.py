@@ -12,6 +12,10 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the test lane runs six workers on a few cores, and
+# torch's default pool (a thread per core in every worker) oversubscribes
+# them, which made these tests many times slower there.
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -27,12 +31,6 @@ from repro_torch.index import flat, ivf  # noqa: E402
 FIELDS = ("topk_i", "topk_d", "ndis", "ninserts", "probe_pos", "active")
 
 
-def _arrays(index):
-    return {f.name: np.asarray(getattr(index, f.name))
-            for f in dataclasses.fields(index)
-            if getattr(index, f.name) is not None}
-
-
 def _carried_index(quantize, n=1500, d=16, nlist=16, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.integers(-8, 9, (n, d)).astype(np.float32)
@@ -41,7 +39,8 @@ def _carried_index(quantize, n=1500, d=16, nlist=16, seed=0):
     ref = dataclasses.replace(ref, centroids=jnp.round(ref.centroids))
     q = rng.integers(-8, 9, (24, d)).astype(np.float32)
     q[0] = x[7]
-    return x, q, ref, convert.ivf_index_from_numpy(_arrays(ref), "cpu")
+    return x, q, ref, convert.ivf_index_from_numpy(
+        convert.fields_as_numpy(ref), "cpu")
 
 
 def _compare(sr, sp, exact):
@@ -134,7 +133,7 @@ def test_port_build_recall_matches_reference_build():
 
 def test_hot_map_raises():
     x, q, ref, port = _carried_index(False)
-    arrays = _arrays(ref)
+    arrays = convert.fields_as_numpy(ref)
     arrays["hot_map"] = np.arange(ref.nlist, dtype=np.int32)
     cold = convert.ivf_index_from_numpy(arrays, "cpu")
     with pytest.raises(NotImplementedError, match="hot_map"):

@@ -12,6 +12,10 @@ against its plain version on the card.
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the test lane runs six workers on a few cores, and
+# torch's default pool (a thread per core in every worker) oversubscribes
+# them, which made these tests many times slower there.
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
