@@ -48,6 +48,25 @@ Phases, each fatal on failure:
               when no query was ever due for a prediction (``npred`` 0 at
               every target), beside each target's interval. Then one fit
               batch's step log is timed and profiled, as in phase 2.
+5. serve:     the DarthServer slot pool as the launcher serves
+              (``SERVE_SLOTS`` 64 slots, ``SERVE_SPS`` 4 steps a chunk; the
+              test queries, each with a target drawn from 0.80 / 0.90 /
+              0.95 by ``default_rng(0)``), three runs at full width: IVF
+              f32 (phase 2's index and Darth) with hosts 1 and 4, untraced
+              and traced (a ``Tracer`` and a ``MetricsRegistry``), all equal
+              per query and equal to ``darth_search`` with per-query
+              intervals in batches of the pool's shape; IVF SQ8 with the f32
+              re-rank (``quantize_ivf`` of phase 2's index, its own
+              ``Darth.fit``, served at k' = 40 through
+              ``RerankStore.reranker(10)``); HNSW (phase 4's graph and
+              Darth, traced). The counts are zeroed just before the first
+              serve and read after the last (the SQ8 fit included); each
+              kernel must have run. Every run completes all queries; each
+              mean recall@10 per target must reach target - 0.03 (HNSW:
+              min(target, plain recall) - 0.03); every traced query has
+              exactly one terminal span and the metrics' completed count
+              equals the server's. A ``[serve] FLAG`` line says so when no
+              served HNSW query was due for a prediction.
 
 Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -68,10 +87,10 @@ empty kernel's time (``launch_floor_ms`` by events, and
 
 It imports nothing of JAX or of the ``repro`` package. Output: JSON lines
 of each path's results and of per-kernel results (``launches`` summed
-over both paths, ``launches_by_path`` split), the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Full results also go to
-``results/chip_smoke.json``. Without a CUDA card, or without the
-repository around it, it exits non-zero and prints no result.
+over the paths, ``launches_by_path`` split: ivf, hnsw, serve), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Full
+results also go to ``results/chip_smoke.json``. Without a CUDA card, or
+without the repository around it, it exits non-zero and prints no result.
 """
 import argparse
 import json
@@ -98,6 +117,9 @@ TOL = 0.03
 # PERF.md section 4), so 1M fails the 0.95 target's gate of 0.92 and
 # 750,000 is the largest of these that meets it.
 HNSW_N = 750_000
+# The launcher's serving settings (src/repro/launch/serve.py:80 and the
+# server's defaults): slots in the pool, engine steps between syncs.
+SERVE_SLOTS, SERVE_SPS = 64, 4
 
 
 def fail(msg: str) -> int:
@@ -212,7 +234,8 @@ def step_log_trace(engine, ql, gt_l):
 def hnsw_path(base, learn, q):
     """Phase 4: DARTH-on-HNSW through the port's entry points over
     ``base``. Returns (results, launches by kernel on this path,
-    failures)."""
+    failures, and the fitted Darth with its exact ground truth and plain
+    recall for phase 5)."""
     import torch
     from repro_torch.core import api, engines
     from repro_torch.index import flat, hnsw
@@ -272,6 +295,7 @@ def hnsw_path(base, learn, q):
     print(f"[hnsw] plain  recall={out['plain']['recall']:.4f} "
           f"ndis={plain_ndis:.0f} (R={nroute}) qps={out['plain']['qps']:.0f} "
           f"steps={out['plain']['steps']}", flush=True)
+    fitted = {"darth": darth, "gt": gt, "plain_recall": out["plain"]["recall"]}
     failures = []
     out["targets"] = {}
     for rt, (ids, st, secs) in results.items():
@@ -304,16 +328,350 @@ def hnsw_path(base, learn, q):
         if launches[name] < 1:
             failures.append(f"kernel {name} was not launched on the hnsw path")
     if failures:
-        return out, launches, failures
+        return out, launches, failures, fitted
 
     ql = torch.as_tensor(learn[:256], device="cuda")
     _, gt_l = flat.search(ql, index.vectors, 10)
     trace, _ = step_log_trace(darth.engine, ql, gt_l)
     if trace is None:
-        return out, launches, ["torch.profiler recorded no device time"]
+        return out, launches, ["torch.profiler recorded no device time"], \
+            fitted
     out["step_log_batch"] = trace
     print(f"[hnsw] one fit batch's step log: {trace}", flush=True)
-    return out, launches, []
+    return out, launches, [], fitted
+
+
+def probe_bound(index, slots, active, k=10):
+    """The least time of bucket_probe_slots calls over ``index``'s store,
+    one call per row of slots [R, B] (summed over rows), with its live
+    rows and distinct buckets; and, for comparison, the bytes' time if
+    every query read its bucket from device memory itself.
+
+    Bytes a call must move: each distinct bucket that an active query
+    reads, once (every id, and the codes and sqnorm of its live rows:
+    pads carry id -1 and distance +inf whatever their codes), and each
+    active query's own inputs and running top-k in and out. Queries of
+    one call that share a bucket find it in L2 after the first read."""
+    import torch
+    cap, code_bytes = index.cap, index.bucket_vecs.element_size()
+    dd = index.bucket_vecs.shape[2]
+    live_per_bucket = (index.bucket_ids >= 0).sum(1).double()
+    slots = slots.reshape(-1, slots.shape[-1]).long()
+    rows = float(active.sum())
+    read = torch.zeros(slots.shape[0], index.nlist + 1,
+                       dtype=torch.double, device=slots.device)
+    read.scatter_(1, slots.masked_fill(~active, index.nlist), 1.0)
+    read = read[:, :index.nlist]
+    live = read @ live_per_bucket
+    own = 4.0 * rows * (dd + 3) + 16.0 * rows * k
+    byts = 4.0 * cap * read.sum(1) + live * (dd * code_bytes + 4.0) + own
+    live_q = (live_per_bucket[slots] * active).sum(1)
+    byts_q = 4.0 * rows * cap + live_q * (dd * code_bytes + 4.0) + own
+    t_b, t_f = byts / HBM_BYTES_PER_S, 2.0 * live_q * dd / F32_FLOP_PER_S
+    return {"bound_ms": 1e3 * float(torch.maximum(t_b, t_f).sum()),
+            "bound_by": "bytes" if bool((t_b >= t_f).all())
+            else "operations",
+            "live_rows": int(live.sum()), "buckets": int(read.sum()),
+            "live_rows_per_query_sum": int(live_q.sum()),
+            "bound_per_query_reads_ms":
+                1e3 * float((byts_q / HBM_BYTES_PER_S).sum())}
+
+
+def serve_row(results, stats, wall, tracer=None):
+    """One serve run's numbers: wall time, host-side q/s and ServeStats'
+    counters; with a tracer, also mean npred, the early-stop share and
+    the slot-steps a server without compaction would take (the queries in
+    arrival order in fixed batches of SERVE_SLOTS, each batch occupying
+    its slots until its slowest query ends; a query's life is its
+    admission-to-harvest steps in this run, a multiple of SERVE_SPS)."""
+    row = {"wall_s": wall, "qps_host": stats.completed / wall,
+           "completed": stats.completed, "returned": sum(
+               r is not None for r in results),
+           "engine_steps": stats.engine_steps,
+           "slot_steps": stats.slot_steps, "refills": stats.refills,
+           "truncated": stats.truncated,
+           "ndis_harvested": stats.ndis_harvested,
+           "ndis_mean": stats.ndis_harvested / max(stats.completed, 1),
+           "chunk_ms_p50": stats.chunk_ms_p50,
+           "chunk_ms_p99": stats.chunk_ms_p99}
+    if tracer is not None:
+        terms = tracer.terminals()
+        life = [terms[i].step - terms[i].attrs["admit_step"]
+                for i in sorted(terms)]
+        row["no_compaction_slot_steps"] = sum(
+            len(life[lo:lo + SERVE_SLOTS]) * max(life[lo:lo + SERVE_SLOTS])
+            for lo in range(0, len(life), SERVE_SLOTS))
+        row["npred_mean"] = sum(t.attrs.get("npred", 0)
+                                for t in terms.values()) / len(terms)
+        row["early_share"] = sum(t.attrs["reason"] == "interval_met"
+                                 for t in terms.values()) / len(terms)
+    return row
+
+
+def serve_recall(results, gt, r_targets):
+    """Mean recall@10 of the served ids per declared target."""
+    import numpy as np
+    import torch
+    from repro_torch.index import flat
+    ids = torch.as_tensor(np.stack([r[1] for r in results]),
+                          device=gt.device)
+    rec = flat.recall_at_k(ids, gt).cpu().numpy()
+    return {str(t): float(rec[r_targets == np.float32(t)].mean())
+            for t in TARGETS}
+
+
+def same_results(a, b):
+    """Count of queries whose (dists, ids) differ between two serves."""
+    import numpy as np
+    return sum(not (np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1]))
+               for x, y in zip(a, b))
+
+
+def serve_kernel_shapes(ds, index, sq8, darth, launches):
+    """bucket_probe and gbdt_predict at the serve path's own shapes, each
+    against its plain version on the same inputs and timed beside it with
+    its bound: one chunk step of the pool (SERVE_SLOTS queries at probe
+    rank 1, every fourth slot free) over the f32 store at k = 10 and over
+    the SQ8 codes at k' = 40, and the predictor on that step's feature
+    rows. (l2_topk runs on this path only in the SQ8 fit's ground truth,
+    phase 3's fit shape.) Returns ({kernel: [shape rows]}, failures)."""
+    import torch
+    from repro_torch.core import darth_search
+    from repro_torch.index import ivf
+    from repro_torch.kernels import cuda, ref
+    qs = torch.as_tensor(ds.queries[:SERVE_SLOTS], device=index.device)
+    free = torch.arange(SERVE_SLOTS, device=index.device) % 4 == 3
+    shapes = {"bucket_probe": [], "gbdt_predict": []}
+    failures = []
+    for case, idx, k in (("serve chunk step, f32 store", index, 10),
+                         ("serve chunk step, SQ8 codes, k'=40", sq8, 40)):
+        st = ivf.probe_step(idx, ivf.init_state(idx, qs, k=k,
+                                                 nprobe=idx.nlist))
+        act = st.active & ~free
+        # probe_step's own arguments: the asymmetric SQ8 query and bias
+        if idx.quantized:
+            q_eff = (st.q * idx.scale[None, :]).contiguous()
+            bias = (st.qsq - 2.0 * (st.q @ idx.offset)[:, None]).contiguous()
+        else:
+            q_eff, bias = st.q, st.qsq
+        slot = st.probe_order[:, 1].contiguous()
+        args = (q_eff, idx.bucket_vecs, idx.bucket_sqnorm, idx.bucket_ids,
+                slot, act, bias, st.topk_d[:, -1:].contiguous(), st.topk_d,
+                st.topk_i)
+        got = cuda.bucket_probe_slots(*args)
+        want = ref.bucket_probe_slots_ref(*args)
+        tol = 1e-3 + 1e-5 * float(torch.nan_to_num(idx.bucket_sqnorm,
+                                                    posinf=0).max())
+        err, agree, ok = topk_agreement(got[0], got[1], want[0], want[1], tol)
+        cnt = int((got[2] - want[2]).abs().max())
+        row = {"case": case, "B": SERVE_SLOTS, "active": int(act.sum()),
+               "k": k, "max_abs_err": err, "id_agreement": agree,
+               "count_max_diff": cnt, "tol": tol,
+               "launches_on_serve_path": launches["bucket_probe"],
+               "ms": cuda_ms(lambda: cuda.bucket_probe_slots(*args), 50),
+               "plain_ms": cuda_ms(
+                   lambda: ref.bucket_probe_slots_ref(*args), 5)}
+        row.update(probe_bound(idx, slot, act, k))
+        shapes["bucket_probe"].append(row)
+        print(f"[serve] bucket_probe {row}", flush=True)
+        if not ok or cnt > 2:
+            failures.append(f"bucket_probe disagrees with plain at {case}")
+        if idx is index:
+            feats = darth_search._features(darth.engine, st).contiguous()
+    p = darth.trained.predictor.params
+    gargs = (feats, p.feat, p.thresh, p.leaf)
+    got = cuda.gbdt_predict(*gargs)
+    err = float((got - ref.gbdt_predict_ref(*gargs)).abs().max())
+    nt, nint = p.feat.shape
+    b, nf = feats.shape
+    t_b = (4.0 * (2 * nt * nint + nt * (nint + 1)) + 4.0 * b * (nf + 1)
+           ) / HBM_BYTES_PER_S
+    t_f = float(b) * nt * (p.depth + 1) / F32_FLOP_PER_S
+    row = {"case": "serve chunk step, the pool's feature rows", "B": b,
+           "max_abs_err": err,
+           "launches_on_serve_path": launches["gbdt_predict"],
+           "ms": cuda_ms(lambda: cuda.gbdt_predict(*gargs), 200),
+           "plain_ms": cuda_ms(lambda: ref.gbdt_predict_ref(*gargs), 5),
+           "bound_ms": 1e3 * max(t_b, t_f),
+           "bound_by": "bytes" if t_b >= t_f else "operations"}
+    shapes["gbdt_predict"].append(row)
+    print(f"[serve] gbdt_predict {row}", flush=True)
+    if err > 1e-5:
+        failures.append(f"gbdt_predict disagrees with plain at the serve "
+                        f"shape: {err}")
+    return shapes, failures
+
+
+def serve_path(ds, index, darth, gt, hnsw_fitted, card):
+    """Phase 5: the DarthServer slot pool, as the launcher serves
+    (src/repro/launch/serve.py:80,216-217,247-250): 64 slots, 4 steps a
+    chunk, the test queries with targets drawn from 0.80 / 0.90 / 0.95.
+    Three runs at full width: IVF f32 (phase 2's index and Darth; hosts 1
+    and 4, untraced and traced, held to each other and to darth_search),
+    IVF SQ8 with the f32 re-rank (quantize_ivf of phase 2's index, its
+    own fit, k' = 40), and HNSW (phase 4's graph and Darth). Returns
+    (results, launches by kernel on this path, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import api, darth_search, engines
+    from repro_torch.index import residency
+    from repro_torch.kernels import cuda
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serve import DarthServer
+    nq = ds.queries.shape[0]
+    r_targets = np.random.default_rng(0).choice(
+        list(TARGETS), nq).astype(np.float32)
+    out = {"card": card, "slots": SERVE_SLOTS, "steps_per_sync": SERVE_SPS,
+           "queries": nq, "runs": {}}
+    failures = []
+    served = {}
+
+    def serve(name, engine, d, *, hosts=1, traced=False, metrics=False,
+              rerank=None):
+        tracer = Tracer() if traced else None
+        reg = MetricsRegistry() if metrics else None
+        srv = DarthServer(engine, d.trained.predictor, d.interval_for_target,
+                          num_slots=SERVE_SLOTS, steps_per_sync=SERVE_SPS,
+                          hosts=hosts, tracer=tracer, metrics=reg,
+                          rerank=rerank)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        results, stats = srv.serve(ds.queries, r_targets)
+        torch.cuda.synchronize()
+        row = serve_row(results, stats, time.time() - t0, tracer)
+        row.update(hosts=hosts, traced=traced)
+        if stats.completed != nq or row["returned"] != nq:
+            failures.append(f"serve {name}: {stats.completed} of {nq} "
+                            f"completed, {row['returned']} returned")
+        if reg is not None:
+            row["metrics_completed"] = reg.counter(
+                "darth_queries_total").value(outcome="completed")
+            if row["metrics_completed"] != stats.completed:
+                failures.append(f"serve {name}: metrics count "
+                                f"{row['metrics_completed']} completed")
+        if tracer is not None:
+            spans = [sp for sp in tracer.last_spans if sp.kind == "terminal"]
+            if sorted(sp.qid for sp in spans) != list(range(nq)):
+                failures.append(f"serve {name}: terminal spans are not one "
+                                f"per query")
+        out["runs"][name] = row
+        served[name] = (results, tracer)
+        print(f"[serve] {name} {row}", flush=True)
+        return results
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    # 1. IVF f32
+    for name, kw in (("ivf_f32_hosts1", {}), ("ivf_f32_hosts4", {"hosts": 4}),
+                     ("ivf_f32_hosts1_traced", {"traced": True,
+                                                "metrics": True}),
+                     ("ivf_f32_hosts4_traced", {"hosts": 4, "traced": True})):
+        serve(name, darth.engine, darth, **kw)
+    # 2. IVF SQ8 with the f32 re-rank: its own fit, served at k' = 4k
+    t0 = time.time()
+    sq8 = residency.quantize_ivf(index)
+    torch.cuda.synchronize()
+    out["sq8"] = {"quantize_s": time.time() - t0,
+                  "resident_bytes_f32": residency.resident_bytes(index),
+                  "resident_bytes_sq8": residency.resident_bytes(sq8)}
+    print(f"[serve] resident bytes f32 "
+          f"{out['sq8']['resident_bytes_f32']['total']} sq8 "
+          f"{out['sq8']['resident_bytes_sq8']['total']}", flush=True)
+    d8 = api.Darth(make_engine=lambda **kw: engines.ivf_engine(sq8, **kw),
+                   engine=engines.ivf_engine(sq8, k=10, nprobe=index.nlist))
+    t0 = time.time()
+    trained = d8.fit(ds.learn, ds.base)
+    out["sq8"].update(fit_s=time.time() - t0, fit_split_s=d8.fit_seconds,
+                      predictor=dict(trained.metrics,
+                                     samples=trained.num_samples))
+    print(f"[serve] SQ8 Darth.fit {out['sq8']['fit_s']:.1f}s split "
+          + " ".join(f"{k}={v:.1f}s" for k, v in d8.fit_seconds.items()),
+          flush=True)
+    rerank = residency.RerankStore(ds.base).reranker(10)
+    eng40 = engines.ivf_engine(sq8, k=40, nprobe=index.nlist)
+    serve("ivf_sq8_rerank", eng40, d8, rerank=rerank)
+    serve("ivf_sq8_rerank_traced", eng40, d8, traced=True, rerank=rerank)
+    # 3. HNSW
+    hd = hnsw_fitted["darth"]
+    serve("hnsw_traced", hd.engine, hd, traced=True)
+    launches = dict(cuda.LAUNCHES)
+    out["launches"] = launches
+    print(f"[serve] launches {launches}", flush=True)
+    for name in launches:
+        if launches[name] < 1:
+            failures.append(f"kernel {name} was not launched on the serve "
+                            f"path")
+    if failures:
+        return out, launches, failures
+
+    # Checks after the counted run: recall gates, runs held to each other,
+    # the IVF f32 runs to darth_search with per-query intervals.
+    gates = {}
+    for name, (results, _) in served.items():
+        rec = serve_recall(results, hnsw_fitted["gt"] if name.startswith(
+            "hnsw") else gt, r_targets)
+        out["runs"][name]["recall"] = rec
+        for t in TARGETS:
+            gate = (min(t, hnsw_fitted["plain_recall"]) if
+                    name.startswith("hnsw") else t) - TOL
+            gates[f"{name} {t}"] = gate
+            if rec[str(t)] < gate:
+                failures.append(f"serve {name}: recall {rec[str(t)]:.4f} at "
+                                f"target {t} below {gate:.4f}")
+    ivf_runs = [n for n in served if n.startswith("ivf_f32")]
+    for name in ivf_runs[1:]:
+        diff = same_results(served[ivf_runs[0]][0], served[name][0])
+        if diff:
+            failures.append(f"serve {name}: {diff} queries differ from "
+                            f"{ivf_runs[0]}")
+    if same_results(*(served[n][0] for n in ("ivf_sq8_rerank",
+                                             "ivf_sq8_rerank_traced"))):
+        failures.append("serve ivf_sq8_rerank: traced run differs")
+    # darth_search in batches of SERVE_SLOTS queries (the last padded with
+    # its own queries), so every device call has the server's shapes.
+    eng, pred = darth.engine, darth.trained.predictor
+    q_all = torch.as_tensor(ds.queries, device=index.device)
+    ids_ds, ndis_ds = [], []
+    for lo in range(0, nq, SERVE_SLOTS):
+        sel = np.resize(np.arange(lo, min(lo + SERVE_SLOTS, nq)), SERVE_SLOTS)
+        rt = r_targets[sel]
+        st = darth_search.darth_search(eng, q_all[torch.as_tensor(sel)], rt,
+                                       pred, darth.interval_for_target(rt))
+        keep = min(SERVE_SLOTS, nq - lo)
+        ids_ds.append(eng.topk_i(st.inner)[:keep].cpu().numpy())
+        ndis_ds.append(st.inner.ndis[:keep].cpu().numpy())
+    ids_ds, ndis_ds = np.concatenate(ids_ds), np.concatenate(ndis_ds)
+    ds_check = {"ids_differ": sum(
+        not np.array_equal(r[1], ids_ds[i])
+        for i, r in enumerate(served["ivf_f32_hosts1"][0]))}
+    for name in ("ivf_f32_hosts1_traced", "ivf_f32_hosts4_traced"):
+        terms = served[name][1].terminals()
+        ds_check[f"{name}_ndis_differ"] = sum(
+            terms[i].attrs["ndis"] != ndis_ds[i] for i in range(nq))
+    ds_check["ndis_harvested_equal"] = all(
+        out["runs"][n]["ndis_harvested"] == int(ndis_ds.sum())
+        for n in ivf_runs)
+    out["darth_search_check"] = ds_check
+    if any(v for k, v in ds_check.items() if k.endswith("differ")) or \
+            not ds_check["ndis_harvested_equal"]:
+        failures.append(f"serve ivf_f32 differs from darth_search: "
+                        f"{ds_check}")
+    shapes, errors = serve_kernel_shapes(ds, index, sq8, darth, launches)
+    out["kernel_shapes"] = shapes
+    failures += errors
+    h = out["runs"]["hnsw_traced"]
+    if h["npred_mean"] == 0:
+        out["flag"] = ("npred is 0 for every served HNSW query: no query "
+                       "was due for a prediction (as in phase 4)")
+        print(f"[serve] FLAG: {out['flag']}", flush=True)
+    for name, row in out["runs"].items():
+        print(f"[serve] {name}: recall {row.get('recall')} wall "
+              f"{row['wall_s']:.2f}s q/s {row['qps_host']:.0f} slot_steps "
+              f"{row['slot_steps']} (no compaction "
+              f"{row.get('no_compaction_slot_steps')}) npred "
+              f"{row.get('npred_mean')} early {row.get('early_share')}",
+              flush=True)
+    return out, launches, failures
 
 
 def main() -> int:
@@ -607,41 +965,8 @@ def main() -> int:
                     "id_agreement": agree8b, "tol": btol})
     if not (okb and okp and ok8b) or cnt_diff > 2:
         return fail(f"bucket_probe disagrees with plain: {bchecks}")
-    # Bytes a probe call must move: each distinct bucket that an active
-    # query reads, once (every id, and the codes and sqnorm of its live
-    # rows: pads carry id -1 and distance +inf whatever their codes), and
-    # each active query's own inputs and running top-k in and out. Queries
-    # of one call that share a bucket find it in L2 after the first read.
-    cap, code_bytes = index.cap, index.bucket_vecs.element_size()
-    dd = index.bucket_vecs.shape[2]
-    live_per_bucket = (index.bucket_ids >= 0).sum(1).double()
-
-    def probe_bound(slots, active):
-        """The least time of one bucket_probe_slots call per row of
-        slots [R, B] (summed over rows), with its live rows and distinct
-        buckets; and, for comparison, the bytes' time if every query read
-        its bucket from device memory itself."""
-        slots = slots.reshape(-1, slots.shape[-1]).long()
-        rows = float(active.sum())
-        read = torch.zeros(slots.shape[0], index.nlist + 1,
-                           dtype=torch.double, device=slots.device)
-        read.scatter_(1, slots.masked_fill(~active, index.nlist), 1.0)
-        read = read[:, :index.nlist]
-        live = read @ live_per_bucket
-        own = 4.0 * rows * (dd + 3) + 16.0 * rows * 10
-        byts = 4.0 * cap * read.sum(1) + live * (dd * code_bytes + 4.0) + own
-        live_q = (live_per_bucket[slots] * active).sum(1)
-        byts_q = 4.0 * rows * cap + live_q * (dd * code_bytes + 4.0) + own
-        t_b, t_f = byts / HBM_BYTES_PER_S, 2.0 * live_q * dd / F32_FLOP_PER_S
-        return {"bound_ms": 1e3 * float(torch.maximum(t_b, t_f).sum()),
-                "bound_by": "bytes" if bool((t_b >= t_f).all())
-                else "operations",
-                "live_rows": int(live.sum()), "buckets": int(read.sum()),
-                "live_rows_per_query_sum": int(live_q.sum()),
-                "bound_per_query_reads_ms":
-                    1e3 * float((byts_q / HBM_BYTES_PER_S).sum())}
-
-    pb = probe_bound(slot, act)
+    cap, dd = index.cap, index.bucket_vecs.shape[2]
+    pb = probe_bound(index, slot, act)
     rows = int(act.sum())
     ms = cuda_ms(lambda: cuda.bucket_probe_slots(*pargs), 50)
     plain_ms = cuda_ms(lambda: ref.bucket_probe_slots_ref(*pargs), 5)
@@ -665,7 +990,7 @@ def main() -> int:
                     "id_agreement": agreea, "count_max_diff": cnt_a,
                     "tol": btol})
     del wa
-    pb_a = probe_bound(slot_a, act_a)
+    pb_a = probe_bound(index, slot_a, act_a)
     ms_a = cuda_ms(lambda: cuda.bucket_probe_slots(*aargs), 20)
     print(f"[kernels] bucket_probe rank-0 B={q.shape[0]} ms={ms_a:.4f} "
           f"{pb_a}", flush=True)
@@ -690,7 +1015,7 @@ def main() -> int:
 
     rd, ri, _ = fit_sweep(False)
     ms_b = fit_sweep(True)[2]
-    pb_b = probe_bound(slots_b, act)
+    pb_b = probe_bound(index, slots_b, act)
     # After every rank the carried top-k is the exact top-10 of the batch.
     gd, gi = flat.search(s0.q, x, 10)
     errs, agrees, oks = topk_agreement(rd, ri, gd, gi, btol)
@@ -828,27 +1153,40 @@ def main() -> int:
         "library_ms": None, "shape": top["shape"], "shapes": gshapes})
 
     # -- 4. hnsw path ----------------------------------------------------------
-    hnsw_out, hnsw_launches, failures = hnsw_path(ds.base[:HNSW_N],
-                                                  ds.learn, q)
+    hnsw_out, hnsw_launches, failures, hnsw_fitted = hnsw_path(
+        ds.base[:HNSW_N], ds.learn, q)
     if failures:
         return fail("; ".join(failures))
     l2_shapes[-1]["launches"] = hnsw_launches["l2_topk"]
+
+    # -- 5. serve path -----------------------------------------------------------
+    serve_out, serve_launches, failures = serve_path(
+        ds, index, darth, gt, hnsw_fitted, card)
+    if failures:
+        return fail("; ".join(failures))
     for row in kernels:
+        extra = serve_out["kernel_shapes"].get(row["name"], [])
+        row["shapes"] += extra
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [sh["max_abs_err"] for sh in extra])
         by_path = {"ivf": launches[row["name"]],
-                   "hnsw": hnsw_launches[row["name"]]}
+                   "hnsw": hnsw_launches[row["name"]],
+                   "serve": serve_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
     kname = torch.cuda.get_device_name(0)
     out = {"card": card, "kind": kname, "torch": torch.__version__,
            "args": vars(args), "main_path": main, "hnsw_path": hnsw_out,
-           "kernels": kernels, "launches": launches,
-           "hnsw_launches": hnsw_launches}
+           "serve_path": serve_out, "kernels": kernels,
+           "launches": launches, "hnsw_launches": hnsw_launches,
+           "serve_launches": serve_launches}
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
     with open(os.path.join(HERE, "results", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1, default=float)
     print(json.dumps({"main_path": main}, default=float))
     print(json.dumps({"hnsw_path": hnsw_out}, default=float))
+    print(json.dumps({"serve_path": serve_out}, default=float))
     print(json.dumps({"kernels": kernels}, default=float))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -44,20 +44,29 @@ def _features(engine: engines_lib.Engine, inner: Any) -> torch.Tensor:
         engine.topk_d(inner))
 
 
+def _interval_field(v, device) -> torch.Tensor:
+    """One interval field as an f32 tensor on ``device``: a host value
+    (float or numpy array) is copied there; a tensor is moved only if it
+    lies elsewhere (no host round trip)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+
 def _params_on(params: IntervalParams, device) -> IntervalParams:
-    """Per-query (array) interval fields become f32 tensors on device;
-    scalar fields stay Python floats, as the reference keeps them."""
+    """Per-query (array or tensor) interval fields become f32 tensors on
+    device; scalar fields stay Python floats, as the reference keeps
+    them."""
     if np.ndim(params.ipi) == 0:
         return params
-    return IntervalParams(
-        ipi=torch.as_tensor(np.asarray(params.ipi, np.float32), device=device),
-        mpi=torch.as_tensor(np.asarray(params.mpi, np.float32), device=device))
+    return IntervalParams(ipi=_interval_field(params.ipi, device),
+                          mpi=_interval_field(params.mpi, device))
 
 
 def init_darth_state(engine: engines_lib.Engine, q: torch.Tensor,
                      params: IntervalParams) -> DarthState:
     b, dev = q.shape[0], q.device
-    pi = torch.as_tensor(np.asarray(params.ipi, np.float32), device=dev)
+    pi = _interval_field(params.ipi, dev)
     return DarthState(
         inner=engine.init(engine.index, q),
         idis=torch.zeros((b,), dtype=torch.int32, device=dev),

@@ -1,0 +1,248 @@
+"""Declarative-recall serving launcher: builds an index, fits DARTH once,
+then serves a stream of queries with per-request recall targets through
+the slot-pool server (the port of the reference's ``launch/serve.py``,
+its frozen-index single-device path).
+
+Usage (on the card; ``--device cpu`` runs the same on the CPU):
+  PYTHONPATH=src python -m repro_torch.launch.serve --n 30000 \
+      --queries 512 --targets 0.8,0.9,0.95
+
+Multi-host slot pool (--hosts N splits the slot pool into N per-host
+slices, each with its own admission/refill loop — simulated multi-host
+on one process):
+  PYTHONPATH=src python -m repro_torch.launch.serve --hosts 4
+
+Difficulty-aware serving (--tiers classifies queries at admission from
+the routing scan and gives the hard tier reserved slots, a boosted
+effective target, hedged duplicates on idle capacity, and bounded
+admission under overload; per-tier p50/p99 recall and latency are
+reported):
+  PYTHONPATH=src python -m repro_torch.launch.serve --tiers --boost 0.05 \
+      --hedge --max-queue 64 --overload degrade
+
+Observability (--trace DIR writes the per-query lifecycle spans to
+DIR/trace.jsonl and prints one termination story; --metrics exports the
+Prometheus page + event log):
+  PYTHONPATH=src python -m repro_torch.launch.serve --trace /tmp/tr --metrics
+  python -m repro_torch.obs.explain /tmp/tr/trace.jsonl --qid 7
+
+Still to port (their slices have not landed): ``--shards`` (the sharded
+index, ROADMAP Queue 1 item 8) and the streaming-mutation workload
+``--mutations``, ``--online-compact``, ``--drift``, ``--mutation-steps``,
+``--delta-cap`` and ``--recal-threshold`` (Queue 1 item 6).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import api, engines, training
+from repro_torch.data import vectors
+from repro_torch.index import flat, hnsw, ivf
+from repro_torch.serve import DarthServer
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=30_000)
+    ap.add_argument("--dim", type=int, default=32)
+    ap.add_argument("--queries", type=int, default=512)
+    ap.add_argument("--learn", type=int, default=2000,
+                    help="DARTH training-query pool size")
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--engine", choices=("ivf", "hnsw"), default="ivf")
+    ap.add_argument("--nlist", type=int, default=128)
+    ap.add_argument("--m", type=int, default=16,
+                    help="HNSW graph degree (--engine hnsw)")
+    ap.add_argument("--ef", type=int, default=128,
+                    help="HNSW frontier size (--engine hnsw)")
+    ap.add_argument("--slots", type=int, default=64)
+    ap.add_argument("--targets", type=str, default="0.8,0.9,0.95")
+    ap.add_argument("--hosts", type=int, default=1,
+                    help="split the slot pool into N per-host loops "
+                         "(admission/refill run per host)")
+    ap.add_argument("--tiers", action="store_true",
+                    help="difficulty-aware admission: classify queries "
+                         "at admission (serve.difficulty) and partition "
+                         "slots between easy/hard tiers")
+    ap.add_argument("--hard-quantile", type=float, default=0.75,
+                    help="difficulty-score quantile above which a query "
+                         "is hard (--tiers)")
+    ap.add_argument("--hard-slots", type=float, default=0.25,
+                    help="fraction of each host's slots reserved for "
+                         "the hard tier (--tiers)")
+    ap.add_argument("--boost", type=float, default=0.0,
+                    help="extra recall target for hard queries, clipped "
+                         "to 0.99 (--tiers)")
+    ap.add_argument("--hedge", action="store_true",
+                    help="launch hedged duplicates of in-flight hard "
+                         "queries into idle hard slots (--tiers)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="per-host admission bound; overflow is shed or "
+                         "degraded per --overload (--tiers)")
+    ap.add_argument("--overload", choices=("degrade", "shed"),
+                    default="degrade",
+                    help="overload policy beyond --max-queue (--tiers)")
+    ap.add_argument("--degrade-target", type=float, default=0.80,
+                    help="lowered target for --overload degrade")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="steal queued queries from backlogged hosts "
+                         "into idle hosts at refill boundaries (--tiers)")
+    ap.add_argument("--trace", type=str, default=None, metavar="DIR",
+                    help="per-query tracing (repro_torch.obs): write the "
+                         "serve phase's lifecycle spans to DIR/"
+                         "trace.jsonl and print one explain() story; "
+                         "replay any query later with python -m "
+                         "repro_torch.obs.explain DIR/trace.jsonl --qid N")
+    ap.add_argument("--metrics", action="store_true",
+                    help="aggregate serving metrics (repro_torch.obs) and "
+                         "write the Prometheus exposition page + JSONL "
+                         "event log to --trace DIR (or results/)")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="device the index, the fit and the server run "
+                         "on (default: the card)")
+    args = ap.parse_args()
+
+    device = torch.device(args.device)
+    targets = [float(t) for t in args.targets.split(",")]
+    ds = vectors.make_dataset(n=args.n, d=args.dim, num_learn=args.learn,
+                              num_queries=args.queries,
+                              clusters=max(32, args.nlist), seed=0)
+    t0 = time.time()
+    if args.engine == "hnsw":
+        index = hnsw.build(ds.base, m=args.m, seed=0, device=device)
+    else:
+        index = ivf.build(ds.base, nlist=args.nlist, seed=0, device=device)
+    print(f"[serve] {args.engine} index built: {index.num_vectors} vecs "
+          f"on {device} ({time.time()-t0:.1f}s)")
+    if args.hosts > 1:
+        print(f"[serve] multi-host slot pool: {args.hosts} host loops x "
+              f"{args.slots // args.hosts} slots")
+
+    engine_kw = (dict(k=args.k, ef=args.ef) if args.engine == "hnsw"
+                 else dict(k=args.k, nprobe=args.nlist))
+
+    def build_engine(**kw):
+        if args.engine == "hnsw":
+            return engines.hnsw_engine(index, **kw)
+        return engines.ivf_engine(index, **kw)
+
+    darth = api.Darth(make_engine=build_engine,
+                      engine=build_engine(**engine_kw))
+    t0 = time.time()
+    darth.fit(ds.learn, ds.base)
+    print(f"[serve] DARTH fit ({time.time()-t0:.1f}s) "
+          f"mse={darth.trained.metrics['mse']:.5f}")
+
+    rng = np.random.default_rng(0)
+    r_targets = rng.choice(targets, size=args.queries).astype(np.float32)
+    tiers = None
+    if args.tiers:
+        from repro_torch.serve import TierConfig
+        tiers = TierConfig(hard_quantile=args.hard_quantile,
+                           hard_slot_fraction=args.hard_slots,
+                           boost=args.boost, hedge=args.hedge,
+                           max_queue=args.max_queue,
+                           overload=args.overload,
+                           degrade_target=args.degrade_target,
+                           rebalance=args.rebalance)
+        print(f"[serve] difficulty tiers: hard q>{args.hard_quantile:.2f}, "
+              f"{args.hard_slots:.0%} hard slots, boost {args.boost:+.2f}"
+              + (", hedging" if args.hedge else "")
+              + (f", max_queue {args.max_queue} ({args.overload})"
+                 if args.max_queue is not None else "")
+              + (", rebalance" if args.rebalance else ""))
+    tracer = None
+    if args.trace is not None:
+        from repro_torch.obs import Tracer
+        os.makedirs(args.trace, exist_ok=True)
+        trace_path = os.path.join(args.trace, "trace.jsonl")
+        open(trace_path, "w").close()     # fresh file per run
+        tracer = Tracer(path=trace_path)
+        print(f"[serve] tracing -> {trace_path}")
+    registry = None
+    if args.metrics:
+        from repro_torch.obs import MetricsRegistry
+        registry = MetricsRegistry()
+    server = DarthServer(darth.engine, darth.trained.predictor,
+                         darth.interval_for_target, num_slots=args.slots,
+                         hosts=args.hosts, tiers=tiers, tracer=tracer,
+                         metrics=registry)
+
+    def serve_phase(label: str):
+        t0 = time.time()
+        if tracer is not None:
+            tracer.label = label       # spans carry the phase name
+        results, stats = server.serve(ds.queries, r_targets)
+        dt = time.time() - t0
+        print(f"[serve] {label}: {stats.completed} queries in {dt:.1f}s "
+              f"({stats.completed/max(dt, 1e-9):.0f} qps host-side; "
+              f"{stats.engine_steps} engine steps, {stats.refills} refills)")
+        if server.hosts > 1:
+            print(f"[serve] {label}: per-host completed "
+                  + "/".join(str(h.completed) for h in stats.hosts))
+        for tier, ts in stats.tiers.items():
+            extra = ""
+            if ts.shed or ts.degraded:
+                extra += f", {ts.shed} shed / {ts.degraded} degraded"
+            if ts.hedged:
+                extra += (f", {ts.hedged} hedged "
+                          f"({ts.hedge_upgrades} upgrades)")
+            print(f"[serve] {label}: tier {tier}: {ts.count} queries, "
+                  f"recall p50/p99 {ts.recall_p50:.3f}/{ts.recall_p99:.3f}"
+                  f" (predicted), latency p50/p99 {ts.latency_p50:.0f}/"
+                  f"{ts.latency_p99:.0f} steps{extra}")
+        if stats.tiers:
+            print(f"[serve] {label}: chunk wall p50/p99 "
+                  f"{stats.chunk_ms_p50:.1f}/{stats.chunk_ms_p99:.1f} ms")
+        done = np.array([i for i, r in enumerate(results) if r is not None])
+        if stats.truncated or len(done) < len(results):
+            print(f"[serve] {label}: step budget hit: {stats.truncated} "
+                  f"truncated, {len(results) - len(done)} never admitted")
+        if done.size == 0:
+            print(f"[serve] {label}: no queries completed — skipping "
+                  f"recall report")
+            return stats
+        ids = np.stack([results[i][1] for i in done])
+        _, gt_i = training.ground_truth(
+            torch.as_tensor(ds.queries[done], device=device),
+            torch.as_tensor(ds.base, device=device), args.k)
+        rec = flat.recall_at_k(torch.as_tensor(ids, device=device),
+                               gt_i).cpu().numpy()
+        for t in targets:
+            sel = r_targets[done] == np.float32(t)
+            if sel.any():
+                print(f"[serve] {label}: target {t:.2f}: mean recall "
+                      f"{rec[sel].mean():.4f} over {int(sel.sum())} queries")
+            else:
+                print(f"[serve] {label}: target {t:.2f}: no completed "
+                      f"queries")
+        return stats
+
+    serve_phase("steady-state")
+
+    if tracer is not None:
+        from repro_torch.obs import explain as explain_lib
+        print(f"[serve] trace: {len(tracer.last_spans)} spans in the "
+              f"last phase; story of its worst-served query:")
+        for line in explain_lib.explain(tracer.last_spans).splitlines():
+            print(f"[serve]   {line}")
+    if registry is not None:
+        out_dir = args.trace if args.trace is not None else "results"
+        os.makedirs(out_dir, exist_ok=True)
+        prom = os.path.join(out_dir, "metrics.prom")
+        events_path = os.path.join(out_dir, "events.jsonl")
+        registry.write_prometheus(prom)
+        registry.write_events(events_path, append=False)
+        served = registry.counter("darth_queries_total")
+        print(f"[serve] metrics -> {prom} (+ {events_path}): "
+              f"{int(sum(served.values.values()))} query outcomes, "
+              f"{len(registry.events)} events")
+
+
+if __name__ == "__main__":
+    main()

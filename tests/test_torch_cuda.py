@@ -298,3 +298,71 @@ def test_hnsw_build_and_search_on_the_card_equal_the_cpu(dev, width):
     for name in ("ndis", "ninserts", "nstep", "visited"):
         assert torch.equal(getattr(out_dev[2], name).cpu(),
                            getattr(out_cpu[2], name))
+
+
+@pytest.fixture(scope="module")
+def served_on_card():
+    """A small IVF index built on the card from integer data (every
+    distance exact), a Darth fitted there, the queries and mixed targets,
+    and darth_search's per-query ids and ndis in batches of the pool's
+    16 slots (so every device call has the server's shapes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.core import api, darth_search, engines
+    from repro_torch.index import ivf
+    rng = np.random.default_rng(4)
+    centers = rng.integers(-12, 13, (24, 16))
+
+    def draw(m, spread):
+        return (centers[rng.integers(0, 24, m)]
+                + rng.integers(-spread, spread + 1, (m, 16))
+                ).astype(np.float32)
+    x, learn, q = draw(4000, 4), draw(600, 6), draw(100, 6)
+    rts = np.random.default_rng(0).choice([0.8, 0.9, 0.95, 0.99],
+                                          100).astype(np.float32)
+    index = ivf.build(x, nlist=16, seed=0, device="cuda")
+    d = api.Darth(make_engine=lambda **kw: engines.ivf_engine(index, **kw),
+                  engine=engines.ivf_engine(index, k=10, nprobe=16))
+    d.fit(learn, x)
+    qd = torch.as_tensor(q, device="cuda")
+    ids, ndis = [], []
+    for lo in range(0, q.shape[0], 16):
+        sel = np.resize(np.arange(lo, min(lo + 16, q.shape[0])), 16)
+        st = darth_search.darth_search(
+            d.engine, qd[torch.as_tensor(sel, device="cuda")], rts[sel],
+            d.trained.predictor, d.interval_for_target(rts[sel]))
+        keep = min(16, q.shape[0] - lo)
+        ids.append(d.engine.topk_i(st.inner)[:keep].cpu().numpy())
+        ndis.append(st.inner.ndis[:keep].cpu().numpy())
+    return d, q, rts, np.concatenate(ids), np.concatenate(ndis)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hosts,traced", [(1, False), (4, False), (1, True),
+                                          (4, True)])
+def test_darth_server_on_the_card_equals_darth_search(served_on_card, hosts,
+                                                      traced):
+    """DarthServer on the card returns, per query, the ids (and, read from
+    the traced terminal spans, the ndis) of darth_search with per-query
+    intervals, through the kernels."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import DarthServer
+    d, q, rts, ids, ndis = served_on_card
+    tracer = Tracer() if traced else None
+    before = dict(cuda.LAUNCHES)
+    results, stats = DarthServer(
+        d.engine, d.trained.predictor, d.interval_for_target, num_slots=16,
+        steps_per_sync=2, hosts=hosts, tracer=tracer).serve(q, rts)
+    assert all(cuda.LAUNCHES[k] > before[k]
+               for k in ("bucket_probe", "gbdt_predict"))
+    assert stats.completed == q.shape[0] and stats.refills > 0
+    for qid, (_, got) in enumerate(results):
+        np.testing.assert_array_equal(got, ids[qid])
+    assert stats.ndis_harvested == int(ndis.sum())
+    if traced:
+        terms = tracer.terminals()
+        assert sorted(terms) == list(range(q.shape[0]))
+        assert [terms[i].attrs["ndis"] for i in range(q.shape[0])] == \
+            ndis.tolist()
+        assert any(t.attrs["reason"] == "interval_met"
+                   for t in terms.values())
