@@ -67,6 +67,30 @@ Phases, each fatal on failure:
               exactly one terminal span and the metrics' completed count
               equals the server's. A ``[serve] FLAG`` line says so when no
               served HNSW query was due for a prediction.
+6. mutate:    the streaming mutable index as the launcher runs it
+              (``--mutations 0.2,0.1 --drift 0.3``: ``mutation_stream``
+              with 200,000 inserts and 100,000 deletes at full size, a
+              delta ring of 200,064 rows), on phase 2's index and Darth:
+              empty-delta parity (``mutable_engine`` equals
+              ``Darth.search`` per query), the burst served through the
+              DarthServer as in phase 5 (recall@10 against
+              ``live_ground_truth`` >= target - 0.03, no deleted id,
+              inserted vectors found at rank 0), the drift check and a
+              forced refit (``RecalibrationMonitor.recalibrate`` on 2,560
+              learn queries, hot-swapped), a synchronous ``compact()``
+              (then the wrapper equals ``ivf_engine`` over the compacted
+              base per query), and the online path on a fresh
+              ``MutableIndex`` (one event per chunk boundary, background
+              compaction ticks, a drained swap: ``swaps == 1``). Then
+              phase 4's graph with a 1 % / 0.5 % burst: ``Darth.search``
+              (recall >= min(target, plain recall) - 0.03), ``compact()``
+              (``insert_nodes`` timed) and post-compaction parity. The
+              counts are zeroed at its start and read after its last
+              search; each kernel must have run. The cuts are printed as
+              ``[mutate] CUT`` lines. ``l2_topk`` is then held against its
+              plain version and timed at the delta scan's shapes (64 and
+              1000 queries against the ring captured halfway through the
+              online stream).
 
 Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -87,7 +111,7 @@ empty kernel's time (``launch_floor_ms`` by events, and
 
 It imports nothing of JAX or of the ``repro`` package. Output: JSON lines
 of each path's results and of per-kernel results (``launches`` summed
-over the paths, ``launches_by_path`` split: ivf, hnsw, serve), the card's
+over the paths, ``launches_by_path`` split: ivf, hnsw, serve, mutate), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Full
 results also go to ``results/chip_smoke.json``. Without a CUDA card, or
 without the repository around it, it exits non-zero and prints no result.
@@ -120,6 +144,23 @@ HNSW_N = 750_000
 # The launcher's serving settings (src/repro/launch/serve.py:80 and the
 # server's defaults): slots in the pool, engine steps between syncs.
 SERVE_SLOTS, SERVE_SPS = 64, 4
+# The launcher's mutation workload (src/repro/launch/serve.py:93-114,
+# 412-418: --mutations 0.2,0.1 --drift 0.3, four steps, seed 1) on the
+# IVF cell, and the HNSW cell's cut burst.
+MUTATE_INS, MUTATE_DEL, MUTATE_DRIFT = 0.2, 0.1, 0.3
+HNSW_MUTATE_INS, HNSW_MUTATE_DEL = 0.01, 0.005
+MUTATE_REFIT_LEARN = 2560
+MUTATE_CUTS = (
+    "the IVF refit uses the first 2,560 learn queries, not 10,000 (the "
+    "full refit would repeat phase 2's ~53 s step log)",
+    "the IVF refit is forced whatever the drift verdict (the launcher "
+    "refits only on drift), so Darth.fit(ids=) and the hot swap run",
+    "the HNSW burst is 1 % inserts / 0.5 % deletes of the 750,000-row "
+    "graph, not 20 % / 10 % (linking 150,000 nodes at a host-bound "
+    "~2-3 ms a beam step would take minutes)")
+
+
+T_START = time.time()
 
 
 def fail(msg: str) -> int:
@@ -375,6 +416,18 @@ def probe_bound(index, slots, active, k=10):
             "live_rows_per_query_sum": int(live_q.sum()),
             "bound_per_query_reads_ms":
                 1e3 * float((byts_q / HBM_BYTES_PER_S).sum())}
+
+
+def l2_bound_of(b, n, dd, code_bytes, kk, f32_codes=True):
+    """Both bounds of one l2_topk call of b queries against n rows of
+    width dd, as the module docstring states."""
+    flop = 2.0 * b * n * dd
+    t_b = (4.0 * (b * dd + n) + n * dd * code_bytes
+           + 8.0 * b * kk) / HBM_BYTES_PER_S
+    t_ops = 3 * flop / (TF32_FLOP_PER_S if f32_codes else BF16_FLOP_PER_S)
+    return {"bound_ms": 1e3 * max(t_ops, t_b),
+            "bound_by": "operations" if t_ops > t_b else "bytes",
+            "f32_core_bound_ms": 1e3 * max(flop / F32_FLOP_PER_S, t_b)}
 
 
 def serve_row(results, stats, wall, tracer=None):
@@ -674,6 +727,436 @@ def serve_path(ds, index, darth, gt, hnsw_fitted, card):
     return out, launches, failures
 
 
+def darth_row(out_ids, st, secs, gt, nq):
+    """One Darth.search run's numbers: recall@10 against ``gt``, mean ndis
+    and npred, early-stop share, wall and q/s."""
+    from repro_torch.index import flat
+    return {"recall": float(flat.recall_at_k(out_ids, gt).mean()),
+            "ndis": float(st.inner.ndis.float().mean()),
+            "npred": float(st.npred.float().mean()),
+            "early_share": float(st.early.float().mean()),
+            "steps": st.steps, "wall_s": secs, "qps": nq / secs}
+
+
+def same_decisions(a, b):
+    """Queries whose ids, ndis, ninserts, r_pred, npred or early differ
+    between two Darth.search outputs (ids, state)."""
+    (ia, sa), (ib, sb) = a, b
+    diff = ((ia != ib).any(1) | (sa.inner.ndis != sb.inner.ndis)
+            | (sa.inner.ninserts != sb.inner.ninserts)
+            | (sa.r_pred != sb.r_pred) | (sa.npred != sb.npred)
+            | (sa.early != sb.early))
+    return int(diff.sum())
+
+
+def timed_search(darth, q, rt):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, ids, st = darth.search(q, rt)
+    torch.cuda.synchronize()
+    return ids, st, time.time() - t0
+
+
+def mutate_path(ds, index, darth, hnsw_fitted, card):
+    """Phase 6: the streaming mutable index as the launcher runs it
+    (src/repro/launch/serve.py:183-208,251-443). IVF at full width on
+    phase 2's index and Darth: empty-delta parity, the 20 % / 10 % burst
+    served through DarthServer, drift check and a forced refit hot-swapped
+    in, a synchronous compaction, and the online path (one event per chunk
+    boundary, background compaction ticks, a drained swap mid-serve).
+    HNSW on phase 4's graph and Darth with a 1 % / 0.5 % burst: search,
+    compaction, parity. Returns (results, launches by kernel on this path,
+    failures, the delta ring captured mid-stream for the kernel rows)."""
+    import numpy as np
+    import torch
+    from repro_torch import mutate
+    from repro_torch.core import api, engines
+    from repro_torch.data import vectors
+    from repro_torch.index import flat, residency
+    from repro_torch.kernels import cuda
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import DarthServer
+    dev = index.device
+    nq = ds.queries.shape[0]
+    n = ds.base.shape[0]
+    q = torch.as_tensor(ds.queries, device=dev)
+    r_targets = np.random.default_rng(0).choice(
+        list(TARGETS), nq).astype(np.float32)
+    kw = dict(k=10, nprobe=index.nlist)
+    cap = max(10, -(-int(round(MUTATE_INS * n)) // 128) * 128)
+    out = {"card": card, "ivf": {"delta_capacity": cap, "steps": {}},
+           "hnsw": {}, "cuts": MUTATE_CUTS}
+    failures = []
+    for line in MUTATE_CUTS:
+        print(f"[mutate] CUT: {line}", flush=True)
+    frozen = {name: getattr(index, name).clone() for name in
+              ("bucket_ids", "bucket_sqnorm", "bucket_sizes")}
+
+    def check_recall(name, row, gate_of):
+        for t in TARGETS:
+            rec = row["recall"][str(t)]
+            if rec < gate_of(t):
+                failures.append(f"mutate {name}: recall {rec:.4f} at "
+                                f"target {t} below {gate_of(t):.4f}")
+
+    def serve(name, srv, mut, on_boundary=None, reps=1):
+        """Serve the test queries (repeated ``reps`` times) through srv
+        (traced: npred and the early-stop share come from the terminal
+        spans). A run whose index changes under it (on_boundary) is
+        checked for completion only: a result may then hold an id
+        deleted later."""
+        qs = np.tile(ds.queries, (reps, 1))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        results, stats = srv.serve(qs, np.tile(r_targets, reps),
+                                   on_boundary=on_boundary)
+        torch.cuda.synchronize()
+        row = serve_row(results, stats, time.time() - t0, srv.tracer)
+        row["swaps"] = stats.swaps
+        out["ivf"]["steps"][name] = row
+        if stats.completed != len(qs) or row["returned"] != len(qs):
+            failures.append(f"mutate {name}: {stats.completed} of "
+                            f"{len(qs)} completed")
+            return row, results
+        if on_boundary is not None:
+            print(f"[mutate] ivf {name} {row}", flush=True)
+            return row, results
+        ids = np.stack([r[1] for r in results])
+        dead = set(mut.deleted_ids.tolist())
+        row["deleted_returned"] = len(set(ids.ravel().tolist()) & dead)
+        if row["deleted_returned"]:
+            failures.append(f"mutate {name}: {row['deleted_returned']} "
+                            f"deleted ids returned")
+        gt = torch.as_tensor(mut.live_ground_truth(ds.queries, 10),
+                             device=dev)
+        rec = flat.recall_at_k(torch.as_tensor(ids, device=dev),
+                               gt).cpu().numpy()
+        row["recall"] = {str(t): float(rec[r_targets == np.float32(t)].mean())
+                         for t in TARGETS}
+        print(f"[mutate] ivf {name} {row}", flush=True)
+        check_recall(f"ivf {name}", row, lambda t: t - TOL)
+        return row, results
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    # -- IVF 1. empty-delta parity --------------------------------------------
+    mut = mutate.MutableIndex(index, capacity=cap)
+
+    def make_engine(**k2):
+        return engines.mutable_engine(engines.ivf_engine(mut.base, **k2),
+                                      mut.delta)
+    mdarth = api.Darth(make_engine=make_engine, engine=make_engine(**kw),
+                       trained=darth.trained)
+    parity = {}
+    for rt in TARGETS:
+        a = timed_search(darth, q, rt)
+        b = timed_search(mdarth, q, rt)
+        parity[str(rt)] = same_decisions(a[:2], b[:2])
+    out["ivf"]["empty_delta_differ"] = parity
+    print(f"[mutate] ivf empty-delta parity: queries differing {parity}",
+          flush=True)
+    if any(parity.values()):
+        failures.append(f"mutate ivf: empty-delta wrapper differs from "
+                        f"Darth.search: {parity}")
+    out["ivf"]["resident_bytes_base"] = residency.resident_bytes(
+        index)["total"]
+    out["ivf"]["resident_bytes_delta"] = residency.resident_bytes(
+        mut.delta)["total"]
+
+    # -- IVF 2. the burst --------------------------------------------------------
+    events = vectors.mutation_stream(ds, MUTATE_INS, MUTATE_DEL,
+                                     drift=MUTATE_DRIFT, steps=4, seed=1)
+    t0 = time.time()
+    mut.apply(events)
+    torch.cuda.synchronize()
+    out["ivf"]["apply_s"] = time.time() - t0
+    out["ivf"]["after_burst"] = {"delta_live": mut.num_delta,
+                                 "tombstones": int(len(mut.deleted_ids)),
+                                 "live": mut.num_live}
+    print(f"[mutate] ivf burst applied in {out['ivf']['apply_s']:.1f}s: "
+          f"{out['ivf']['after_burst']}", flush=True)
+    mdarth.engine = make_engine(**kw)
+    server = DarthServer(mdarth.engine, mdarth.trained.predictor,
+                         mdarth.interval_for_target, num_slots=SERVE_SLOTS,
+                         steps_per_sync=SERVE_SPS, tracer=Tracer())
+    row, results = serve("post-burst", server, mut)
+    # chunk boundaries a pass of the test queries crosses while the pool
+    # is full: each query holds a slot for slot_steps / completed steps
+    per_pass = (row["slot_steps"] / SERVE_SPS) / SERVE_SLOTS
+    # inserted vectors as queries: each finds itself at rank 0
+    own = np.array(sorted(mut._delta_slot))[::max(1, mut.num_delta // 64)][:64]
+    own_q = mut.delta.vecs[[mut._delta_slot[i] for i in own]]
+    _, own_ids, _ = mdarth.search(own_q, 0.95)
+    own_hit = int((own_ids[:, 0].cpu().numpy() == own).sum())
+    out["ivf"]["inserted_self_rank0"] = own_hit
+    print(f"[mutate] ivf inserted vectors found at rank 0: {own_hit} of "
+          f"{own.size}", flush=True)
+    if own_hit != own.size:
+        failures.append(f"mutate ivf: {own.size - own_hit} inserted vectors "
+                        f"not found at rank 0")
+
+    # -- IVF 3. drift check and a forced refit ----------------------------------
+    monitor = mutate.RecalibrationMonitor(mut, mdarth, targets=TARGETS)
+    monitor.observe(ds.queries, r_targets,
+                    np.stack([r[1] for r in results]))
+    rep = monitor.drift()
+    out["ivf"]["drift"] = {"achieved": {str(k): v for k, v in
+                                        rep.achieved.items()},
+                           "worst_gap": rep.worst_gap,
+                           "drifted": rep.drifted,
+                           "num_queries": rep.num_queries}
+    print(f"[mutate] ivf drift check: {out['ivf']['drift']} (refit forced "
+          f"whatever the verdict)", flush=True)
+    t0 = time.time()
+    trained = monitor.recalibrate(ds.learn[:MUTATE_REFIT_LEARN],
+                                  server=server)
+    torch.cuda.synchronize()
+    out["ivf"]["refit_s"] = time.time() - t0
+    out["ivf"]["refit_split_s"] = dict(monitor.refit_seconds)
+    out["ivf"]["refit_predictor"] = dict(trained.metrics,
+                                         samples=trained.num_samples)
+    print(f"[mutate] ivf refit {out['ivf']['refit_s']:.1f}s split "
+          f"{monitor.refit_seconds}", flush=True)
+    if server.predictor is not trained.predictor:
+        failures.append("mutate ivf: the refit predictor was not swapped in")
+    serve("post-recalibration", server, mut)
+
+    # -- IVF 4. synchronous compaction --------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mut.compact()
+    torch.cuda.synchronize()
+    out["ivf"]["compact_s"] = time.time() - t0
+    out["ivf"]["compact_split_s"] = dict(mut.compaction_seconds)
+    out["ivf"]["compacted_cap"] = mut.base.cap
+    print(f"[mutate] ivf compaction {out['ivf']['compact_s']:.1f}s split "
+          f"{mut.compaction_seconds} cap {index.cap} -> {mut.base.cap}",
+          flush=True)
+    mdarth.engine = make_engine(**kw)
+    server.set_engine(mdarth.engine, contents_only=True)
+    serve("post-compaction", server, mut)
+    plain = api.Darth(make_engine=None,
+                      engine=engines.ivf_engine(mut.base, **kw),
+                      trained=mdarth.trained)
+    parity = {str(rt): same_decisions(timed_search(plain, q, rt)[:2],
+                                      timed_search(mdarth, q, rt)[:2])
+              for rt in TARGETS}
+    out["ivf"]["post_compaction_differ"] = parity
+    print(f"[mutate] ivf post-compaction wrapper vs ivf_engine: queries "
+          f"differing {parity}", flush=True)
+    if any(parity.values()):
+        failures.append(f"mutate ivf: post-compaction wrapper differs: "
+                        f"{parity}")
+    out["ivf"]["resident_bytes_compacted"] = residency.resident_bytes(
+        mut.base)["total"]
+    del server, monitor, plain, mut
+
+    # -- IVF 5. the online path ------------------------------------------------------
+    if not all(torch.equal(getattr(index, k), v) for k, v in frozen.items()):
+        failures.append("mutate ivf: phase 2's index changed")
+    mut = mutate.MutableIndex(index, capacity=cap)
+    mdarth.engine = make_engine(**kw)
+    events = list(vectors.mutation_stream(ds, MUTATE_INS, MUTATE_DEL,
+                                          drift=MUTATE_DRIFT, steps=4,
+                                          seed=1))
+    n_ins = sum(e.vecs.shape[0] for e in events if e.kind == "insert")
+    # Ticks of compact_ivf_steps: two snapshot reads, one per 4096-row
+    # assign chunk, the concatenation, one per 64-bucket pack chunk; the
+    # tick that finds it done and the drain take a chunk each.
+    ticks = 2 + -(-n_ins // 4096) + 1 + -(-index.nlist // 64)
+    need = len(events) + 1 + ticks + 1 + 2
+    # the smallest R whose stream outlasts the swap by a pass
+    reps = int(np.ceil(need / per_pass)) + 1
+    out["ivf"]["online"] = {"events": len(events), "expected_ticks": ticks,
+                            "boundaries_needed": need,
+                            "boundaries_per_pass": per_pass, "R": reps}
+    print(f"[mutate] ivf online: {len(events)} events + begin + {ticks} "
+          f"ticks + done + drain = {need} boundaries; {per_pass:.1f} "
+          f"boundaries a pass -> the test queries repeated R = {reps} "
+          f"times", flush=True)
+    if reps > 8:
+        failures.append(f"mutate ivf online: R = {reps} > 8")
+        return out, dict(cuda.LAUNCHES), failures, None
+    server = DarthServer(mdarth.engine, mdarth.trained.predictor,
+                         mdarth.interval_for_target, num_slots=SERVE_SLOTS,
+                         steps_per_sync=SERVE_SPS, tracer=Tracer())
+    state = {"swapped": False, "ticks": 0, "inserts": 0, "ring": None,
+             "boundary": 0, "swap_at": None}
+
+    def on_boundary(srv):
+        state["boundary"] += 1
+        if srv.swap_pending or state["swapped"]:
+            return
+        if events:
+            ev = events.pop(0)
+            mut.apply([ev])
+            if ev.kind == "insert":
+                state["inserts"] += 1
+                if state["inserts"] == 2:    # half the stream: the ring
+                    state["ring"] = mut.delta  # the kernel rows time
+            mdarth.engine = mutate.refresh_view(
+                srv.engine, base=mut.base if ev.kind == "delete" else None,
+                delta=mut.delta)
+            srv.set_engine(mdarth.engine, contents_only=True)
+        elif not mut.compacting:
+            mut.begin_compaction()
+        elif mut.compact_tick():
+            state["ticks"] = mut.compaction_ticks
+            mut.swap_compaction()
+            mdarth.engine = make_engine(**kw)
+            srv.request_swap(mdarth.engine, contents_only=True)
+            state["swapped"] = True
+            state["swap_at"] = state["boundary"]
+
+    row, _ = serve("online", server, mut, on_boundary=on_boundary,
+                   reps=reps)
+    row.update(ticks=state["ticks"], swap_at_boundary=state["swap_at"],
+               boundaries=state["boundary"])
+    print(f"[mutate] ivf online: swaps {row['swaps']} after "
+          f"{state['ticks']} ticks at boundary {state['swap_at']} of "
+          f"{state['boundary']}", flush=True)
+    if row["swaps"] != 1 or not state["swapped"]:
+        failures.append(f"mutate ivf online: {row['swaps']} swaps")
+    if state["ticks"] != ticks:
+        failures.append(f"mutate ivf online: {state['ticks']} ticks, "
+                        f"expected {ticks}")
+    serve("post-swap", server, mut)
+    ring = state["ring"]
+    del server, mut
+
+    # -- HNSW, cut ----------------------------------------------------------------------
+    hd = hnsw_fitted["darth"]
+    graph = hd.engine.index
+    hn = graph.num_vectors
+    hds = vectors.VectorDataset(base=ds.base[:hn], learn=ds.learn,
+                                queries=ds.queries, name="hnsw")
+    hcap = max(10, -(-int(round(HNSW_MUTATE_INS * hn)) // 128) * 128)
+    hkw = dict(k=10, ef=384, max_steps=1200)
+    hmut = mutate.MutableIndex(graph, capacity=hcap)
+    hmut.apply(vectors.mutation_stream(hds, HNSW_MUTATE_INS,
+                                       HNSW_MUTATE_DEL, drift=MUTATE_DRIFT,
+                                       steps=4, seed=1))
+
+    def hmake(**k2):
+        return engines.mutable_engine(engines.hnsw_engine(hmut.base, **k2),
+                                      hmut.delta)
+    hmd = api.Darth(make_engine=hmake, engine=hmake(**hkw),
+                    trained=hd.trained)
+    h = out["hnsw"]
+    h.update(delta_capacity=hcap, delta_live=hmut.num_delta,
+             tombstones=int(len(hmut.deleted_ids)), live=hmut.num_live)
+    gt = torch.as_tensor(hmut.live_ground_truth(ds.queries, 10), device=dev)
+    _, pi, _ = hmd.search_plain(q)
+    h["plain_recall"] = float(flat.recall_at_k(pi, gt).mean())
+    h["targets"] = {}
+    hdead = set(hmut.deleted_ids.tolist())
+    for rt in TARGETS:
+        ids, st, secs = timed_search(hmd, q, rt)
+        row = darth_row(ids, st, secs, gt, nq)
+        row["deleted_returned"] = len(set(ids.cpu().numpy().ravel().tolist())
+                                      & hdead)
+        h["targets"][str(rt)] = row
+        print(f"[mutate] hnsw target {rt} {row}", flush=True)
+        gate = min(rt, h["plain_recall"]) - TOL
+        if row["recall"] < gate:
+            failures.append(f"mutate hnsw: recall {row['recall']:.4f} at "
+                            f"target {rt} below {gate:.4f}")
+        if row["deleted_returned"]:
+            failures.append("mutate hnsw: deleted ids returned")
+    if all(r["npred"] == 0 for r in h["targets"].values()):
+        h["flag"] = ("npred is 0 at every target: no query was due for a "
+                     "prediction (as in phase 4)")
+        print(f"[mutate] FLAG: {h['flag']}", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hmut.compact()
+    torch.cuda.synchronize()
+    h["compact_s"] = time.time() - t0
+    h["compact_split_s"] = dict(hmut.compaction_seconds)
+    print(f"[mutate] hnsw compaction {h['compact_s']:.1f}s split "
+          f"{hmut.compaction_seconds} (link = insert_nodes of "
+          f"{h['delta_live']} rows)", flush=True)
+    hmd.engine = hmake(**hkw)
+    hplain = api.Darth(make_engine=None,
+                       engine=engines.hnsw_engine(hmut.base, **hkw),
+                       trained=hd.trained)
+    parity = {str(rt): same_decisions(timed_search(hplain, q, rt)[:2],
+                                      timed_search(hmd, q, rt)[:2])
+              for rt in TARGETS}
+    h["post_compaction_differ"] = parity
+    gt = torch.as_tensor(hmut.live_ground_truth(ds.queries, 10), device=dev)
+    _, pi, _ = hplain.search_plain(q)
+    h["compacted_plain_recall"] = float(flat.recall_at_k(pi, gt).mean())
+    print(f"[mutate] hnsw post-compaction wrapper vs hnsw_engine: queries "
+          f"differing {parity}; compacted plain recall "
+          f"{h['compacted_plain_recall']:.4f}", flush=True)
+    if any(parity.values()):
+        failures.append(f"mutate hnsw: post-compaction wrapper differs: "
+                        f"{parity}")
+    launches = dict(cuda.LAUNCHES)
+    out["launches"] = launches
+    print(f"[mutate] launches {launches}", flush=True)
+    for name in launches:
+        if launches[name] < 1:
+            failures.append(f"kernel {name} was not launched on the mutate "
+                            f"path")
+    return out, launches, failures, ring
+
+
+def delta_scan_shapes(ds, ring, launches):
+    """l2_topk at the delta scan's shapes (mutate/delta.py's call): a
+    chunk's 64 refills and the 1000 test queries against the ring captured
+    halfway through the online stream, empty slots at +inf. Each row: the
+    kernel against its plain version (max error, id agreement), event,
+    plain, addmm + topk and profiler device time, beside its bound (all
+    rows read, as the kernel reads them; ``bound_live_ms`` counts only the
+    live rows)."""
+    import torch
+    from repro_torch.kernels import cuda, ref
+    rows, failures = [], []
+    xsq = ring.sqnorm
+    live = int(torch.isfinite(xsq).sum())
+    tol = 1e-3 + 1e-5 * float(xsq[torch.isfinite(xsq)].max())
+    for case, nq in (("delta scan, a chunk's 64 refills", SERVE_SLOTS),
+                     ("delta scan, 1000 test queries", 1000)):
+        qq = torch.as_tensor(ds.queries[:nq], device=ring.device)
+        d_k, i_k = cuda.l2_topk(qq, ring.vecs, xsq, 10)
+        d_r, i_r = ref.l2_topk_ref(qq, ring.vecs, xsq, 10)
+        err, agree, ok = topk_agreement(d_k, i_k, d_r, i_r, tol)
+        inf_entered = int((i_k >= 0).logical_and(
+            ~torch.isfinite(xsq[i_k.clamp_min(0).long()])).sum())
+        row = {"case": case,
+               "shape": f"q[{nq},{qq.shape[1]}] x[{ring.capacity},"
+                        f"{ring.dim}] float32 k=10",
+               "ring_rows": ring.capacity, "live_rows": live,
+               "inf_rows": ring.capacity - live,
+               "launches": launches["l2_topk"], "max_abs_err": err,
+               "id_agreement": agree, "tol": tol,
+               "inf_rows_entered": inf_entered,
+               "ms": cuda_ms(lambda: cuda.l2_topk(qq, ring.vecs, xsq, 10),
+                             20),
+               "plain_ms": cuda_ms(
+                   lambda: ref.l2_topk_ref(qq, ring.vecs, xsq, 10), 2),
+               "library_ms": cuda_ms(lambda: torch.topk(torch.addmm(
+                   xsq, qq, ring.vecs.T, alpha=-2), 10, largest=False), 2)}
+        b, dd = nq, ring.dim
+        row.update(l2_bound_of(b, ring.capacity, dd, 4, 10))
+        row["bound_live_ms"] = l2_bound_of(b, live, dd, 4, 10)["bound_ms"]
+        _, by, counts = profiled(lambda: [cuda.l2_topk(qq, ring.vecs, xsq, 10)
+                                          for _ in range(20)])
+        row["kernels_ms"] = kernels_ms(by, counts, "l2_")
+        if "l2_topk_kernel" not in row["kernels_ms"]:
+            failures.append(f"torch.profiler recorded no l2_topk kernel at "
+                            f"the delta scan: {by}")
+        row["device_ms"] = sum(row["kernels_ms"].values())
+        rows.append(row)
+        print(f"[mutate] l2_topk {row}", flush=True)
+        if not ok or inf_entered:
+            failures.append(f"l2_topk disagrees with plain at the {case}")
+    return rows, failures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -841,16 +1324,8 @@ def main() -> int:
          5)]
 
     def l2_bound(qq, xx, kk):
-        """Both bounds of one l2_topk call, as the module docstring states."""
-        b, n, dd = qq.shape[0], xx.shape[0], xx.shape[1]
-        flop = 2.0 * b * n * dd
-        t_b = (4.0 * (b * dd + n) + n * dd * xx.element_size()
-               + 8.0 * b * kk) / HBM_BYTES_PER_S
-        t_ops = 3 * flop / (TF32_FLOP_PER_S if xx.dtype == torch.float32
-                            else BF16_FLOP_PER_S)
-        return {"bound_ms": 1e3 * max(t_ops, t_b),
-                "bound_by": "operations" if t_ops > t_b else "bytes",
-                "f32_core_bound_ms": 1e3 * max(flop / F32_FLOP_PER_S, t_b)}
+        return l2_bound_of(qq.shape[0], xx.shape[0], xx.shape[1],
+                           xx.element_size(), kk, xx.dtype == torch.float32)
 
     l2_shapes, checks = [], []
     for case, qq, xx, sq, kk, nl, reps in l2_cases:
@@ -1164,30 +1639,51 @@ def main() -> int:
         ds, index, darth, gt, hnsw_fitted, card)
     if failures:
         return fail("; ".join(failures))
+
+    # -- 6. mutate path ------------------------------------------------------------
+    t0 = time.time()
+    mutate_out, mutate_launches, failures, ring = mutate_path(
+        ds, index, darth, hnsw_fitted, card)
+    if failures:
+        return fail("; ".join(failures))
+    if ring is None:
+        return fail("mutate: the online stream never held two insert events")
+    delta_rows, failures = delta_scan_shapes(ds, ring, mutate_launches)
+    if failures:
+        return fail("; ".join(failures))
+    mutate_out["wall_s"] = time.time() - t0
+    print(f"[mutate] phase 6 took {mutate_out['wall_s']:.1f}s", flush=True)
+    extra_shapes = dict(serve_out["kernel_shapes"])
+    extra_shapes["l2_topk"] = delta_rows
     for row in kernels:
-        extra = serve_out["kernel_shapes"].get(row["name"], [])
+        extra = extra_shapes.get(row["name"], [])
         row["shapes"] += extra
         row["max_abs_err"] = max([row["max_abs_err"]]
                                  + [sh["max_abs_err"] for sh in extra])
         by_path = {"ivf": launches[row["name"]],
                    "hnsw": hnsw_launches[row["name"]],
-                   "serve": serve_launches[row["name"]]}
+                   "serve": serve_launches[row["name"]],
+                   "mutate": mutate_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
     kname = torch.cuda.get_device_name(0)
     out = {"card": card, "kind": kname, "torch": torch.__version__,
            "args": vars(args), "main_path": main, "hnsw_path": hnsw_out,
-           "serve_path": serve_out, "kernels": kernels,
-           "launches": launches, "hnsw_launches": hnsw_launches,
-           "serve_launches": serve_launches}
+           "serve_path": serve_out, "mutate_path": mutate_out,
+           "kernels": kernels, "launches": launches,
+           "hnsw_launches": hnsw_launches, "serve_launches": serve_launches,
+           "mutate_launches": mutate_launches}
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
     with open(os.path.join(HERE, "results", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1, default=float)
     print(json.dumps({"main_path": main}, default=float))
     print(json.dumps({"hnsw_path": hnsw_out}, default=float))
     print(json.dumps({"serve_path": serve_out}, default=float))
+    print(json.dumps({"mutate_path": mutate_out}, default=float))
     print(json.dumps({"kernels": kernels}, default=float))
+    print(f"[main] chip_smoke.py took {time.time() - T_START:.1f}s",
+          flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kname,

@@ -69,3 +69,14 @@ def hnsw_engine(index: hnsw_lib.HNSWIndex, *, k: int, ef: int,
         name="hnsw",
         k=k,
     )
+
+
+def mutable_engine(base_engine: Engine, delta) -> Engine:
+    """Wrap an engine with a delta tier: init adds one brute-force delta
+    scan (fused l2_topk), step is the base step, and the top-k getters
+    merge the delta candidates via merge_topk. Tombstoned slots carry
+    sqnorm +inf / ids -1 in base and delta alike, so deletes are
+    invisible to every driver. See repro_torch.mutate."""
+    from repro_torch.mutate import engine as mutate_engine_lib
+
+    return mutate_engine_lib.mutable_engine(base_engine, delta)

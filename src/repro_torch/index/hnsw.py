@@ -280,6 +280,80 @@ def build(x: np.ndarray, m: int = 16, *, ef_construction: int = 64,
                      entry=entry, route_ids=route_ids)
 
 
+def insert_nodes(index: HNSWIndex, rows: np.ndarray, *,
+                 ef_construction: int = 64, alpha: float = 1.2,
+                 chunk: int = 1024) -> HNSWIndex:
+    """Incrementally link already-appended rows (streaming compaction).
+
+    ``rows`` must already be present in vectors/sqnorm (their neighbour
+    rows are overwritten); entry/route_ids must reference nodes that are
+    live and linked, since they seed the candidate searches. Per chunk:
+    beam-search the CURRENT graph for each new vector (its
+    ef_construction frontier is the candidate pool, as in the batch
+    build), RobustPrune to m forward edges, then merge the reverse
+    proposals into each target's list and re-prune — the reverse-edge
+    repair that makes new nodes reachable. (Synchronous wrapper: drains
+    insert_nodes_steps in one call.)"""
+    gen = insert_nodes_steps(index, rows, ef_construction=ef_construction,
+                             alpha=alpha, chunk=chunk)
+    while True:
+        try:
+            next(gen)
+        except StopIteration as stop:
+            return stop.value
+
+
+def insert_nodes_steps(index: HNSWIndex, rows: np.ndarray, *,
+                       ef_construction: int = 64, alpha: float = 1.2,
+                       chunk: int = 1024):
+    """Generator form of insert_nodes: yields after each linked chunk (one
+    bounded unit of work — a background compaction's tick boundary) and
+    returns the updated index via StopIteration.value. The searches and
+    prunes run on the index's device; the adjacency is kept in numpy
+    between chunks, as in ``build``. The graph must hold f32 vectors
+    (compaction dequantizes an SQ8 graph before it links)."""
+    rows = np.asarray(rows, np.int64)
+    if rows.size == 0:
+        return index
+    if index.quantized:
+        raise ValueError("insert_nodes links f32 graphs; dequantize an "
+                         "SQ8 graph first (as compaction does)")
+    dev = index.device
+    xv = index.vectors
+    nbr = index.neighbors.cpu().numpy().copy()
+    n, m = nbr.shape
+    alpha2 = float(alpha) ** 2
+    efc = max(ef_construction, 2 * m)
+
+    for lo in range(0, rows.size, chunk):
+        sel = rows[lo:lo + chunk]
+        sel_t = torch.as_tensor(sel, device=dev)
+        cur = dataclasses.replace(
+            index, neighbors=torch.as_tensor(nbr, device=dev))
+        _, _, s = search(cur, xv[sel_t], k=m, ef=efc, max_steps=4 * efc)
+        fwd = _pool_prune(xv, sel_t, s.cand_d, s.cand_i, m,
+                          alpha2).cpu().numpy()
+        del s
+        nbr[sel] = fwd
+        # Reverse-edge repair: every forward target merges the new node
+        # into its own list and re-prunes to degree m.
+        fwd_full = np.full((n, m), PAD_ID, np.int32)
+        fwd_full[sel] = fwd
+        rev = _reverse_edges(fwd_full, m)
+        targets = np.nonzero((rev >= 0).any(axis=1))[0]
+        if targets.size:
+            merged = _dedup_rows_vec(
+                np.concatenate([nbr[targets], rev[targets]], axis=1))
+            nbr[targets] = _prune_rows(
+                xv, torch.as_tensor(targets, device=dev),
+                torch.as_tensor(merged, device=dev), m,
+                alpha2).cpu().numpy()
+        yield
+
+    return dataclasses.replace(index,
+                               neighbors=torch.as_tensor(nbr, device=dev))
+
+
 # ---------------------------------------------------------------------------
 # Search
 # ---------------------------------------------------------------------------

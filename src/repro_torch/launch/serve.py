@@ -26,10 +26,19 @@ Prometheus page + event log):
   PYTHONPATH=src python -m repro_torch.launch.serve --trace /tmp/tr --metrics
   python -m repro_torch.obs.explain /tmp/tr/trace.jsonl --qid 7
 
-Still to port (their slices have not landed): ``--shards`` (the sharded
-index, ROADMAP Queue 1 item 8) and the streaming-mutation workload
-``--mutations``, ``--online-compact``, ``--drift``, ``--mutation-steps``,
-``--delta-cap`` and ``--recal-threshold`` (Queue 1 item 6).
+Streaming mutations (--mutations INS,DEL applies an insert/delete burst
+between serve phases through repro_torch.mutate: delta ring + tombstones,
+drift monitor, predictor recalibration hot-swap, compaction;
+--online-compact streams the events into a live serve phase instead,
+one per chunk boundary, then compacts in the background and hot-swaps
+the folded base at a drained boundary):
+  PYTHONPATH=src python -m repro_torch.launch.serve --mutations 0.2,0.1 \
+      --drift 0.3
+  PYTHONPATH=src python -m repro_torch.launch.serve --mutations 0.2,0.1 \
+      --drift 0.3 --online-compact
+
+Still to port: ``--shards`` (the sharded index, ROADMAP Queue 1 item 8);
+it raises.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import mutate
 from repro_torch.core import api, engines, training
 from repro_torch.data import vectors
 from repro_torch.index import flat, hnsw, ivf
@@ -62,9 +72,34 @@ def main() -> None:
                     help="HNSW frontier size (--engine hnsw)")
     ap.add_argument("--slots", type=int, default=64)
     ap.add_argument("--targets", type=str, default="0.8,0.9,0.95")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="sharded serving: not ported yet (ROADMAP "
+                         "Queue 1 item 8); raises")
     ap.add_argument("--hosts", type=int, default=1,
                     help="split the slot pool into N per-host loops "
                          "(admission/refill run per host)")
+    ap.add_argument("--mutations", type=str, default=None,
+                    metavar="INS,DEL",
+                    help="streaming-mutation workload: apply an "
+                         "insert_pct,delete_pct burst (of --n) between "
+                         "serve phases, with drift monitoring, "
+                         "predictor recalibration and compaction")
+    ap.add_argument("--drift", type=float, default=0.0,
+                    help="fraction of burst inserts drawn OOD "
+                         "(mutation_stream)")
+    ap.add_argument("--mutation-steps", type=int, default=4)
+    ap.add_argument("--online-compact", action="store_true",
+                    help="with --mutations: stream the events INTO a "
+                         "live serve phase (one per chunk boundary, "
+                         "contents-only delta refreshes), then run "
+                         "compaction as a background incremental "
+                         "rebuild ticked at boundaries and hot-swap "
+                         "the folded base atomically at a drained "
+                         "boundary")
+    ap.add_argument("--delta-cap", type=int, default=0,
+                    help="delta ring capacity (0 = sized to the burst)")
+    ap.add_argument("--recal-threshold", type=float, default=0.02,
+                    help="recall drift that triggers a predictor refit")
     ap.add_argument("--tiers", action="store_true",
                     help="difficulty-aware admission: classify queries "
                          "at admission (serve.difficulty) and partition "
@@ -106,6 +141,10 @@ def main() -> None:
                     help="device the index, the fit and the server run "
                          "on (default: the card)")
     args = ap.parse_args()
+    if args.shards is not None:
+        raise NotImplementedError(
+            "--shards: sharded serving is not ported yet (ROADMAP Queue 1 "
+            "item 8)")
 
     device = torch.device(args.device)
     targets = [float(t) for t in args.targets.split(",")]
@@ -126,10 +165,24 @@ def main() -> None:
     engine_kw = (dict(k=args.k, ef=args.ef) if args.engine == "hnsw"
                  else dict(k=args.k, nprobe=args.nlist))
 
-    def build_engine(**kw):
+    mutable = None
+    if args.mutations is not None:
+        ins_pct, del_pct = (float(v) for v in args.mutations.split(","))
+        cap = args.delta_cap or max(
+            args.k, -(-int(round(ins_pct * args.n)) // 128) * 128)
+        mutable = mutate.MutableIndex(index, capacity=cap)
+        print(f"[serve] mutable index: delta capacity {cap}")
+
+    def family_engine(idx, **kw):
         if args.engine == "hnsw":
-            return engines.hnsw_engine(index, **kw)
-        return engines.ivf_engine(index, **kw)
+            return engines.hnsw_engine(idx, **kw)
+        return engines.ivf_engine(idx, **kw)
+
+    def build_engine(**kw):
+        if mutable is None:
+            return family_engine(index, **kw)
+        return engines.mutable_engine(family_engine(mutable.base, **kw),
+                                      mutable.delta)
 
     darth = api.Darth(make_engine=build_engine,
                       engine=build_engine(**engine_kw))
@@ -172,12 +225,34 @@ def main() -> None:
                          darth.interval_for_target, num_slots=args.slots,
                          hosts=args.hosts, tiers=tiers, tracer=tracer,
                          metrics=registry)
+    monitor = None
+    if mutable is not None:
+        monitor = mutate.RecalibrationMonitor(
+            mutable, darth, targets=targets,
+            threshold=args.recal_threshold, metrics=registry)
+        if registry is not None:
+            mutable.attach_metrics(registry)
+    frozen_gt = {}
 
-    def serve_phase(label: str):
+    def ground_truth() -> torch.Tensor:
+        """Exact top-k of the test queries over the current live set, as
+        GLOBAL ids; the mutable path memoizes it on the mutation epoch
+        (MutableIndex.live_ground_truth)."""
+        if mutable is not None:
+            return torch.as_tensor(
+                mutable.live_ground_truth(ds.queries, args.k), device=device)
+        if "gt" not in frozen_gt:
+            frozen_gt["gt"] = training.ground_truth(
+                torch.as_tensor(ds.queries, device=device),
+                torch.as_tensor(ds.base, device=device), args.k)[1]
+        return frozen_gt["gt"]
+
+    def serve_phase(label: str, on_boundary=None):
         t0 = time.time()
         if tracer is not None:
             tracer.label = label       # spans carry the phase name
-        results, stats = server.serve(ds.queries, r_targets)
+        results, stats = server.serve(ds.queries, r_targets,
+                                      on_boundary=on_boundary)
         dt = time.time() - t0
         print(f"[serve] {label}: {stats.completed} queries in {dt:.1f}s "
               f"({stats.completed/max(dt, 1e-9):.0f} qps host-side; "
@@ -208,11 +283,11 @@ def main() -> None:
                   f"recall report")
             return stats
         ids = np.stack([results[i][1] for i in done])
-        _, gt_i = training.ground_truth(
-            torch.as_tensor(ds.queries[done], device=device),
-            torch.as_tensor(ds.base, device=device), args.k)
+        gt_i = ground_truth()[torch.as_tensor(done, device=device)]
         rec = flat.recall_at_k(torch.as_tensor(ids, device=device),
                                gt_i).cpu().numpy()
+        if monitor is not None:
+            monitor.observe(ds.queries[done], r_targets[done], ids)
         for t in targets:
             sel = r_targets[done] == np.float32(t)
             if sel.any():
@@ -223,7 +298,112 @@ def main() -> None:
                       f"queries")
         return stats
 
-    serve_phase("steady-state")
+    serve_phase("pre-mutation" if mutable is not None else "steady-state")
+
+    if mutable is not None and args.online_compact:
+        events = list(vectors.mutation_stream(
+            ds, ins_pct, del_pct, drift=args.drift,
+            steps=args.mutation_steps, seed=1))
+        print(f"[serve] online mutation stream: {len(events)} events, "
+              f"applied one per chunk boundary")
+
+        def push_contents(update_base: bool) -> None:
+            """Contents-only view refresh into the live server: delta
+            always, base only when tombstones changed."""
+            eng = mutate.refresh_view(
+                server.engine, base=mutable.base if update_base else None,
+                delta=mutable.delta)
+            darth.engine = eng
+            server.set_engine(eng, contents_only=True)
+
+        state = {"swapped": False, "ticks": 0}
+
+        def trace_event(srv, kind: str, **attrs) -> None:
+            """Server-level compaction span, stamped at the boundary."""
+            if srv.tracer is not None:
+                srv.tracer.event(kind, step=srv.boundary_step,
+                                 epoch=srv.engine_epoch, **attrs)
+
+        def on_boundary(srv) -> None:
+            # one unit of mutation work per boundary; once a swap is
+            # staged, do nothing until the pool drains and applies it
+            if srv.swap_pending or state["swapped"]:
+                return
+            if events:
+                ev = events.pop(0)
+                mutable.apply([ev])
+                push_contents(update_base=(ev.kind == "delete"))
+            elif not mutable.compacting:
+                mutable.begin_compaction()
+                trace_event(srv, "compact_begin")
+            elif mutable.compact_tick():
+                state["ticks"] = mutable.compaction_ticks
+                trace_event(srv, "compact_tick",
+                            tick=mutable.compaction_ticks, done=True)
+                mutable.swap_compaction()
+                trace_event(srv, "compact_swap")
+                eng = build_engine(**engine_kw)
+                srv.request_swap(eng, contents_only=True)
+                darth.engine = eng
+                state["swapped"] = True
+            else:
+                trace_event(srv, "compact_tick",
+                            tick=mutable.compaction_ticks, done=False)
+
+        stats = serve_phase("online-mutation", on_boundary=on_boundary)
+        if not state["swapped"]:
+            # the serve phase finished before the stream / rebuild did:
+            # drain the leftovers synchronously (the same generator, so
+            # the same shadow)
+            if events:
+                mutable.apply(events)
+                events.clear()
+            if mutable.compacting:
+                while not mutable.compact_tick():
+                    pass
+                mutable.swap_compaction()
+            else:
+                mutable.compact()
+            darth.engine = build_engine(**engine_kw)
+            server.set_engine(darth.engine, contents_only=True)
+        print(f"[serve] online compaction: {stats.swaps} atomic "
+              f"swap(s) mid-serve ({state['ticks']} background ticks), "
+              f"{stats.hedge_epoch_dropped} hedges dropped across "
+              f"epochs; {mutable.num_live} live vectors, delta empty")
+        serve_phase("post-swap")
+
+    elif mutable is not None:
+        events = vectors.mutation_stream(
+            ds, ins_pct, del_pct, drift=args.drift,
+            steps=args.mutation_steps, seed=1)
+        mutable.apply(events)
+        print(f"[serve] mutation burst applied: {mutable.num_delta} delta "
+              f"inserts live, {len(mutable.deleted_ids)} tombstones, "
+              f"{mutable.num_live} live vectors")
+        darth.engine = build_engine(**engine_kw)
+        server.set_engine(darth.engine, contents_only=True)
+        serve_phase("post-burst")
+
+        rep = monitor.drift()
+        print(f"[serve] drift check over {rep.num_queries} replayed "
+              f"queries: worst gap {rep.worst_gap:.4f} "
+              f"({'RECALIBRATING' if rep.drifted else 'within threshold'})")
+        if rep.drifted:
+            t0 = time.time()
+            monitor.recalibrate(ds.learn, server=server)
+            print(f"[serve] predictor refit + hot-swap "
+                  f"({time.time()-t0:.1f}s) "
+                  f"mse={darth.trained.metrics['mse']:.5f}")
+            serve_phase("post-recalibration")
+
+        t0 = time.time()
+        mutable.compact()
+        darth.engine = build_engine(**engine_kw)
+        server.set_engine(darth.engine, contents_only=True)
+        print(f"[serve] compaction folded delta into base "
+              f"({time.time()-t0:.1f}s): {mutable.num_live} live vectors, "
+              f"delta empty")
+        serve_phase("post-compaction")
 
     if tracer is not None:
         from repro_torch.obs import explain as explain_lib

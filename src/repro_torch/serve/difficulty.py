@@ -155,8 +155,10 @@ def _routing_points(index) -> np.ndarray:
     """The index's routing scan targets, copied to the host.
 
     IVF routes over centroids; HNSW over the uniform node sample
-    route_ids. (The reference also routes a mutable view with its base
-    index; the port has no mutable index yet.)"""
+    route_ids; a MutableIndexView routes with its base index (the delta
+    ring is scanned brute-force, it has no routing structure)."""
+    if hasattr(index, "base") and hasattr(index, "delta"):
+        return _routing_points(index.base)
     if hasattr(index, "centroids"):
         return index.centroids.cpu().numpy().astype(np.float32, copy=False)
     if hasattr(index, "route_ids"):
@@ -164,8 +166,8 @@ def _routing_points(index) -> np.ndarray:
         return index.vectors[ids].cpu().numpy().astype(np.float32)
     raise TypeError(
         f"cannot derive routing points from index type "
-        f"{type(index).__name__}: expected IVF (centroids) or HNSW "
-        f"(route_ids)")
+        f"{type(index).__name__}: expected IVF (centroids), HNSW "
+        f"(route_ids) or a mutable view of either")
 
 
 def difficulty_scores(index, queries: np.ndarray, *,

@@ -366,3 +366,122 @@ def test_darth_server_on_the_card_equals_darth_search(served_on_card, hosts,
             ndis.tolist()
         assert any(t.attrs["reason"] == "interval_met"
                    for t in terms.values())
+
+
+@pytest.mark.gpu
+def test_delta_ring_write_and_tombstone_on_the_card(dev):
+    """A write padded with slot -1 drops the pad rows on the card as on the
+    CPU (never onto the last slot); a tombstone masks only named slots and
+    leaves the ring it was given as it was."""
+    from repro_torch import mutate
+    rng = np.random.default_rng(3)
+    vecs = rng.integers(-9, 10, (6, 8)).astype(np.float32)
+    slots = np.array([0, 5, -1, 15, -1, 2], np.int32)    # 15 = last slot
+    ids = np.array([10, 11, -1, 12, -1, 13], np.int32)
+    got = mutate.delta.write(mutate.make_delta(16, 8, device=dev), slots,
+                             vecs, ids)
+    want = mutate.delta.write(mutate.make_delta(16, 8, device="cpu"), slots,
+                              vecs, ids)
+    dead = np.array([5, -1, 15, -1], np.int32)
+    got2, want2 = (mutate.delta.tombstone(got, dead),
+                   mutate.delta.tombstone(want, dead))
+    for a, b in ((got, want), (got2, want2)):
+        for name in ("vecs", "ids", "sqnorm"):
+            assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
+    assert int(got.ids[15]) == 12 and int(got.ids[14]) == -1
+    assert int(mutate.delta.live_count(got2)) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_delta_topk_on_the_card_equals_the_cpu(dev, k):
+    """delta_topk through the l2_topk kernel over a ring that holds empty
+    and tombstoned rows (sqnorm +inf): those rows never enter, live and
+    ninserts are equal, distances and ids agree to phase 3's tolerance
+    (1e-3 + 1e-5 x the largest sqnorm; ids may differ only on ties within
+    it). Float data, as the delta scan serves it."""
+    from repro_torch import mutate
+    rng = np.random.default_rng(k)
+    cap, d = 4096, 32
+    n = 2500
+    vecs = rng.normal(size=(n, d)).astype(np.float32)
+    slots = rng.permutation(cap)[:n].astype(np.int32)
+    ids = np.arange(1000, 1000 + n, dtype=np.int32)
+    dead = slots[::3].copy()
+    ring = {}
+    for where in (dev, "cpu"):
+        r = mutate.delta.write(mutate.make_delta(cap, d, device=where),
+                               slots, vecs, ids)
+        ring[where] = mutate.delta.tombstone(r, dead)
+    q = rng.normal(size=(300, d)).astype(np.float32)
+    before = cuda.LAUNCHES["l2_topk"]
+    got = mutate.delta.delta_topk(ring[dev], torch.as_tensor(q, device=dev),
+                                  k)
+    assert cuda.LAUNCHES["l2_topk"] == before + 1
+    want = mutate.delta.delta_topk(ring["cpu"], torch.as_tensor(q), k)
+    tol = 1e-3 + 1e-5 * float(ring["cpu"].sqnorm[
+        torch.isfinite(ring["cpu"].sqnorm)].max())
+    _close_ids(got[0].cpu(), got[1].cpu(), want[0], want[1], tol)
+    assert int(got[2]) == int(want[2]) == n - dead.size
+    assert torch.equal(got[3].cpu(), want[3])
+    dead_ids = set(ids[np.isin(slots, dead)].tolist())
+    assert not (set(got[1].cpu().numpy().ravel().tolist()) & dead_ids)
+    assert (got[1] >= 0).all()
+
+
+@pytest.mark.gpu
+def test_mask_ivf_slots_with_a_repeated_bucket_on_the_card(dev):
+    """Deleting several slots of one bucket lowers its size by the count
+    (a scatter-add: probe_step's ndis reads these sizes), tombstones the
+    slots and never writes the index it was given."""
+    from repro_torch.index import ivf
+    from repro_torch.mutate.index import _mask_ivf_slots, _pad_idx
+    x = np.random.default_rng(5).integers(-8, 9, (3000, 16)).astype(
+        np.float32)
+    index = ivf.build(x, nlist=8, seed=0, device=dev)
+    sizes = index.bucket_sizes.clone()
+    b = np.array([2, 2, 2, 5, 2], np.int64)
+    s = np.array([0, 1, 3, 0, 4], np.int64)
+    out = _mask_ivf_slots(index, _pad_idx(b), _pad_idx(s))
+    want = sizes.clone()
+    want[2] -= 4
+    want[5] -= 1
+    assert torch.equal(out.bucket_sizes, want)
+    assert torch.equal(index.bucket_sizes, sizes)
+    assert (out.bucket_ids[2, [0, 1, 3, 4]] == -1).all()
+    assert torch.isinf(out.bucket_sqnorm[5, 0])
+    assert (index.bucket_ids[2, [0, 1, 3, 4]] >= 0).all()
+    assert out.bucket_vecs is index.bucket_vecs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ivf", "hnsw"])
+def test_empty_delta_wrapper_on_the_card_is_the_base_engine(dev, kind):
+    """With an empty ring, the mutable wrapper on the card returns the base
+    engine's distances, ids, ndis and ninserts bit for bit (the delta scan
+    runs, and its +inf rows change nothing)."""
+    from repro_torch import mutate
+    from repro_torch.core import darth_search, engines
+    from repro_torch.index import hnsw, ivf
+    rng = np.random.default_rng(6)
+    x = rng.integers(0, 256, (4000, 32)).astype(np.float32)
+    q = torch.as_tensor(rng.integers(0, 256, (64, 32)).astype(np.float32),
+                        device=dev)
+    if kind == "ivf":
+        base = engines.ivf_engine(ivf.build(x, nlist=16, seed=0, device=dev),
+                                  k=10, nprobe=16)
+    else:
+        base = engines.hnsw_engine(
+            hnsw.build(x, m=12, ef_construction=32, passes=1, device=dev),
+            k=10, ef=48)
+    mut = mutate.MutableIndex(base.index, capacity=256)
+    assert mut.delta.device == base.index.device
+    wrap = engines.mutable_engine(base, mut.delta)
+    before = cuda.LAUNCHES["l2_topk"]
+    s_w = darth_search.plain_search(wrap, q)
+    assert cuda.LAUNCHES["l2_topk"] == before + 1
+    s_b = darth_search.plain_search(base, q)
+    assert torch.equal(wrap.topk_d(s_w), base.topk_d(s_b))
+    assert torch.equal(wrap.topk_i(s_w), base.topk_i(s_b))
+    assert torch.equal(s_w.ndis, s_b.ndis)
+    assert torch.equal(s_w.ninserts, s_b.ninserts)
