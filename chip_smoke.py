@@ -91,6 +91,38 @@ Phases, each fatal on failure:
               plain version and timed at the delta scan's shapes (64 and
               1000 queries against the ring captured halfway through the
               online stream).
+7. competitors: the paper's Fig 10 / Fig 11 / §4.1.5 setup
+              (``benchmarks/paper_tables.py:160-205,336-364``) on phase
+              2's index and Darth: validation queries ``learn[:512]``, the
+              LAET / Baseline step log on ``learn[512:1536]``, ground truth
+              at k = 10 and at K' = 100 (NRS) through l2_topk. DARTH,
+              Baseline (``budget_search`` at the mean ``dists_to_target``),
+              REM (nprobe grid 4..192, then ``plain_search`` at the mapped
+              nprobe) and LAET (n0 2, ``tune_laet`` with 6 steps) at each
+              target: ``metrics.summarize`` (recall, RQUT, RDE, NRS, P99,
+              worst 1 %), mean ndis and host q/s; the noise sweep at 0.90
+              (``noisy_queries`` at 0 / 1 / 4 / 10 / 20 %, seed 7) beside
+              the plain ceiling; model selection on phase 2's fit log
+              (200,000 rows, 10 % hold-out: GBDT, random forest, decision
+              tree, linear; MSE and R^2). Fatal: 1000 results per method,
+              DARTH equal per query to phase 2's ``Darth.search``, REM's
+              mapping not falling with the target, l2_topk at k = 100
+              against its plain version, every kernel launched. A
+              competitor missing a target is printed, not fatal.
+8. cold:      the cold bucket tier on phase 2's index and Darth, served
+              as phase 5 serves: 1024 resident slots in ``plan`` order
+              must give phase 5's IVF f32 ids and ndis per query; on the
+              256 most populated buckets ``plain_search`` at nprobe =
+              nlist must return the top-10 of the resident rows and count
+              exactly them; then 256 resident buckets (lookahead 4,
+              staging 8) in three modes (static, ``plan``, ``plan`` with
+              ``on_boundary``) on all test queries and on the drifted
+              slice (rank-1 bucket outside the 256 most populated), each
+              with recall per target, ndis, prefetches, evictions,
+              misses, staging ms per boundary, wall and resident bytes.
+              Fatal: every query completes and the tier's counters equal
+              the ``darth_cold_*`` metrics. A ``[cold] FLAG`` line (not
+              fatal) says when plan + prefetch recalls less than static.
 
 Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -111,8 +143,9 @@ empty kernel's time (``launch_floor_ms`` by events, and
 
 It imports nothing of JAX or of the ``repro`` package. Output: JSON lines
 of each path's results and of per-kernel results (``launches`` summed
-over the paths, ``launches_by_path`` split: ivf, hnsw, serve, mutate), the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``. Full
+over the paths, ``launches_by_path`` split: ivf, hnsw, serve, mutate,
+competitors, cold), each phase's wall time, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``. Full
 results also go to ``results/chip_smoke.json``. Without a CUDA card, or
 without the repository around it, it exits non-zero and prints no result.
 """
@@ -150,6 +183,21 @@ SERVE_SLOTS, SERVE_SPS = 64, 4
 MUTATE_INS, MUTATE_DEL, MUTATE_DRIFT = 0.2, 0.1, 0.3
 HNSW_MUTATE_INS, HNSW_MUTATE_DEL = 0.01, 0.005
 MUTATE_REFIT_LEARN = 2560
+# The paper's competitor setup (benchmarks/paper_tables.py:160-205, Fig 10
+# and Fig 11): REM's nprobe grid, LAET's fixed prefix and multiplier
+# search depth, the hardness sweep's noise levels (sigma^2 = pct * ||q||)
+# and its target; the evaluation's wide ground truth K' (benchmarks/
+# common.py:56) for NRS.
+REM_GRID = (4, 8, 16, 32, 64, 96, 128, 192)
+LAET_N0, LAET_STEPS = 2, 6
+NOISE_PCTS, NOISE_TARGET = (0.0, 1.0, 4.0, 10.0, 20.0), 0.90
+WIDE_K = 100
+METHODS = ("darth", "baseline", "rem", "laet")
+# The cold tier as an operator runs it when the bucket store does not fit
+# the card: 256 of the 1024 buckets resident, a staging ring of 8 slots,
+# lookahead 4 (src/repro/serve/cold.py defaults), plan over the first 4
+# probes.
+COLD_SLOTS, COLD_LOOKAHEAD, COLD_STAGING, COLD_FIRST = 256, 4, 8, 4
 MUTATE_CUTS = (
     "the IVF refit uses the first 2,560 learn queries, not 10,000 (the "
     "full refit would repeat phase 2's ~53 s step log)",
@@ -396,13 +444,14 @@ def probe_bound(index, slots, active, k=10):
     import torch
     cap, code_bytes = index.cap, index.bucket_vecs.element_size()
     dd = index.bucket_vecs.shape[2]
+    nrows = index.bucket_ids.shape[0]   # buckets in the store (cold: S)
     live_per_bucket = (index.bucket_ids >= 0).sum(1).double()
     slots = slots.reshape(-1, slots.shape[-1]).long()
     rows = float(active.sum())
-    read = torch.zeros(slots.shape[0], index.nlist + 1,
+    read = torch.zeros(slots.shape[0], nrows + 1,
                        dtype=torch.double, device=slots.device)
-    read.scatter_(1, slots.masked_fill(~active, index.nlist), 1.0)
-    read = read[:, :index.nlist]
+    read.scatter_(1, slots.masked_fill(~active, nrows), 1.0)
+    read = read[:, :nrows]
     live = read @ live_per_bucket
     own = 4.0 * rows * (dd + 3) + 16.0 * rows * k
     byts = 4.0 * cap * read.sum(1) + live * (dd * code_bytes + 4.0) + own
@@ -469,8 +518,9 @@ def serve_recall(results, gt, r_targets):
     ids = torch.as_tensor(np.stack([r[1] for r in results]),
                           device=gt.device)
     rec = flat.recall_at_k(ids, gt).cpu().numpy()
-    return {str(t): float(rec[r_targets == np.float32(t)].mean())
-            for t in TARGETS}
+    masks = {t: r_targets == np.float32(t) for t in TARGETS}
+    return {str(t): float(rec[m].mean()) if m.any() else None
+            for t, m in masks.items()}
 
 
 def same_results(a, b):
@@ -478,6 +528,90 @@ def same_results(a, b):
     import numpy as np
     return sum(not (np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1]))
                for x, y in zip(a, b))
+
+
+def shape_row_l2(case, qq, xx, sq, kk, launches_n, reps, plain_reps=1):
+    """l2_topk at one shape: event time over ``reps`` calls, its plain
+    version's, one PyTorch computation of the same function (x_sqnorm -
+    2 q.x by addmm and its k smallest by topk; int8 codes widened to f32
+    outside the timing), both bounds and the profiler's device ms per
+    kernel ({} when the profiler recorded none)."""
+    import torch
+    from repro_torch.kernels import cuda, ref
+    xf = xx.float()
+    row = {"case": case, "shape": f"q[{qq.shape[0]},{qq.shape[1]}] "
+           f"x[{xx.shape[0]},{xx.shape[1]}] {xx.dtype} k={kk}",
+           "launches": launches_n,
+           "ms": cuda_ms(lambda: cuda.l2_topk(qq, xx, sq, kk), reps),
+           "plain_ms": cuda_ms(lambda: ref.l2_topk_ref(qq, xx, sq, kk),
+                               plain_reps),
+           "library_ms": cuda_ms(lambda: torch.topk(torch.addmm(
+               sq, qq, xf.T, alpha=-2), kk, largest=False), plain_reps)}
+    del xf
+    row.update(l2_bound_of(qq.shape[0], xx.shape[0], xx.shape[1],
+                           xx.element_size(), kk, xx.dtype == torch.float32))
+    _, by, counts = profiled(lambda: [cuda.l2_topk(qq, xx, sq, kk)
+                                      for _ in range(reps)])
+    row["kernels_ms"] = kernels_ms(by, counts, "l2_")
+    row["profiled_launches"] = {k: counts[k] for k in by if "l2_" in k}
+    row["profiled_calls"] = reps
+    row["device_ms"] = sum(row["kernels_ms"].values())
+    return row
+
+
+def shape_row_gbdt(case, xx, p, launches_n, reps=200):
+    """gbdt_predict at one shape against its plain version: max error,
+    event time, plain time, both bounds (as phase 3 counts them) and the
+    profiler's device ms per call."""
+    from repro_torch.kernels import cuda, ref
+    gargs = (xx.contiguous(), p.feat, p.thresh, p.leaf)
+    err = float((cuda.gbdt_predict(*gargs)
+                 - ref.gbdt_predict_ref(*gargs)).abs().max())
+    nt, nint = p.feat.shape
+    b, nf = xx.shape
+    t_b = (4.0 * (2 * nt * nint + nt * (nint + 1)) + 4.0 * b * (nf + 1)
+           ) / HBM_BYTES_PER_S
+    t_f = float(b) * nt * (p.depth + 1) / F32_FLOP_PER_S
+    row = {"case": case, "shape": f"x[{b},{nf}] trees={nt} depth={p.depth}",
+           "B": b, "launches": launches_n, "max_abs_err": err,
+           "ms": cuda_ms(lambda: cuda.gbdt_predict(*gargs), reps),
+           "plain_ms": cuda_ms(lambda: ref.gbdt_predict_ref(*gargs), 5),
+           "bound_ms": 1e3 * max(t_b, t_f),
+           "bound_by": "bytes" if t_b >= t_f else "operations",
+           "lookup_figure_ms": 1e3 * b * nt * (2 * p.depth + 1)
+           / SMEM_LOOKUPS_PER_S}
+    _, by, counts = profiled(lambda: [cuda.gbdt_predict(*gargs)
+                                      for _ in range(reps)])
+    row["kernels_ms"] = kernels_ms(by, counts, "gbdt")
+    row["profiled_launches"] = {k: counts[k] for k in by if "gbdt" in k}
+    row["profiled_calls"] = reps
+    row["device_ms"] = sum(row["kernels_ms"].values())
+    return row
+
+
+def shape_row_probe(case, store, args, tol, launches_n, reps=50):
+    """bucket_probe_slots on ``args`` (its own argument tuple, over
+    ``store``) against its plain version, timed beside its bound and the
+    profiler's device ms. Returns (row, agrees)."""
+    import torch
+    from repro_torch.kernels import cuda, ref
+    got = cuda.bucket_probe_slots(*args)
+    want = ref.bucket_probe_slots_ref(*args)
+    err, agree, ok = topk_agreement(got[0], got[1], want[0], want[1], tol)
+    cnt = int((got[2] - want[2]).abs().max())
+    slot, act, k = args[4], args[5], args[8].shape[1]
+    row = {"case": case, "B": int(slot.shape[0]), "active": int(act.sum()),
+           "k": k, "max_abs_err": err, "id_agreement": agree,
+           "count_max_diff": cnt, "tol": tol, "launches": launches_n,
+           "ms": cuda_ms(lambda: cuda.bucket_probe_slots(*args), reps),
+           "plain_ms": cuda_ms(lambda: ref.bucket_probe_slots_ref(*args), 5)}
+    row.update(probe_bound(store, slot, act, k))
+    torch.cuda.synchronize()
+    _, by, counts = profiled(lambda: [cuda.bucket_probe_slots(*args)
+                                      for _ in range(reps)])
+    row["kernels_ms"] = kernels_ms(by, counts, "probe")
+    row["device_ms"] = sum(row["kernels_ms"].values())
+    return row, ok and cnt <= 2
 
 
 def serve_kernel_shapes(ds, index, sq8, darth, launches):
@@ -491,7 +625,6 @@ def serve_kernel_shapes(ds, index, sq8, darth, launches):
     import torch
     from repro_torch.core import darth_search
     from repro_torch.index import ivf
-    from repro_torch.kernels import cuda, ref
     qs = torch.as_tensor(ds.queries[:SERVE_SLOTS], device=index.device)
     free = torch.arange(SERVE_SLOTS, device=index.device) % 4 == 3
     shapes = {"bucket_probe": [], "gbdt_predict": []}
@@ -511,47 +644,24 @@ def serve_kernel_shapes(ds, index, sq8, darth, launches):
         args = (q_eff, idx.bucket_vecs, idx.bucket_sqnorm, idx.bucket_ids,
                 slot, act, bias, st.topk_d[:, -1:].contiguous(), st.topk_d,
                 st.topk_i)
-        got = cuda.bucket_probe_slots(*args)
-        want = ref.bucket_probe_slots_ref(*args)
         tol = 1e-3 + 1e-5 * float(torch.nan_to_num(idx.bucket_sqnorm,
                                                     posinf=0).max())
-        err, agree, ok = topk_agreement(got[0], got[1], want[0], want[1], tol)
-        cnt = int((got[2] - want[2]).abs().max())
-        row = {"case": case, "B": SERVE_SLOTS, "active": int(act.sum()),
-               "k": k, "max_abs_err": err, "id_agreement": agree,
-               "count_max_diff": cnt, "tol": tol,
-               "launches_on_serve_path": launches["bucket_probe"],
-               "ms": cuda_ms(lambda: cuda.bucket_probe_slots(*args), 50),
-               "plain_ms": cuda_ms(
-                   lambda: ref.bucket_probe_slots_ref(*args), 5)}
-        row.update(probe_bound(idx, slot, act, k))
+        row, ok = shape_row_probe(case, idx, args, tol,
+                                  launches["bucket_probe"])
         shapes["bucket_probe"].append(row)
         print(f"[serve] bucket_probe {row}", flush=True)
-        if not ok or cnt > 2:
+        if not ok:
             failures.append(f"bucket_probe disagrees with plain at {case}")
         if idx is index:
             feats = darth_search._features(darth.engine, st).contiguous()
-    p = darth.trained.predictor.params
-    gargs = (feats, p.feat, p.thresh, p.leaf)
-    got = cuda.gbdt_predict(*gargs)
-    err = float((got - ref.gbdt_predict_ref(*gargs)).abs().max())
-    nt, nint = p.feat.shape
-    b, nf = feats.shape
-    t_b = (4.0 * (2 * nt * nint + nt * (nint + 1)) + 4.0 * b * (nf + 1)
-           ) / HBM_BYTES_PER_S
-    t_f = float(b) * nt * (p.depth + 1) / F32_FLOP_PER_S
-    row = {"case": "serve chunk step, the pool's feature rows", "B": b,
-           "max_abs_err": err,
-           "launches_on_serve_path": launches["gbdt_predict"],
-           "ms": cuda_ms(lambda: cuda.gbdt_predict(*gargs), 200),
-           "plain_ms": cuda_ms(lambda: ref.gbdt_predict_ref(*gargs), 5),
-           "bound_ms": 1e3 * max(t_b, t_f),
-           "bound_by": "bytes" if t_b >= t_f else "operations"}
+    row = shape_row_gbdt("serve chunk step, the pool's feature rows", feats,
+                         darth.trained.predictor.params,
+                         launches["gbdt_predict"])
     shapes["gbdt_predict"].append(row)
     print(f"[serve] gbdt_predict {row}", flush=True)
-    if err > 1e-5:
+    if row["max_abs_err"] > 1e-5:
         failures.append(f"gbdt_predict disagrees with plain at the serve "
-                        f"shape: {err}")
+                        f"shape: {row['max_abs_err']}")
     return shapes, failures
 
 
@@ -563,7 +673,8 @@ def serve_path(ds, index, darth, gt, hnsw_fitted, card):
     and 4, untraced and traced, held to each other and to darth_search),
     IVF SQ8 with the f32 re-rank (quantize_ivf of phase 2's index, its
     own fit, k' = 40), and HNSW (phase 4's graph and Darth). Returns
-    (results, launches by kernel on this path, failures)."""
+    (results, launches by kernel on this path, failures, {run: (results,
+    tracer)}, the targets drawn)."""
     import numpy as np
     import torch
     from repro_torch.core import api, darth_search, engines
@@ -655,7 +766,7 @@ def serve_path(ds, index, darth, gt, hnsw_fitted, card):
             failures.append(f"kernel {name} was not launched on the serve "
                             f"path")
     if failures:
-        return out, launches, failures
+        return out, launches, failures, served, r_targets
 
     # Checks after the counted run: recall gates, runs held to each other,
     # the IVF f32 runs to darth_search with per-query intervals.
@@ -724,7 +835,7 @@ def serve_path(ds, index, darth, gt, hnsw_fitted, card):
               f"{row.get('no_compaction_slot_steps')}) npred "
               f"{row.get('npred_mean')} early {row.get('early_share')}",
               flush=True)
-    return out, launches, failures
+    return out, launches, failures, served, r_targets
 
 
 def darth_row(out_ids, st, secs, gt, nq):
@@ -1126,35 +1237,406 @@ def delta_scan_shapes(ds, ring, launches):
         err, agree, ok = topk_agreement(d_k, i_k, d_r, i_r, tol)
         inf_entered = int((i_k >= 0).logical_and(
             ~torch.isfinite(xsq[i_k.clamp_min(0).long()])).sum())
-        row = {"case": case,
-               "shape": f"q[{nq},{qq.shape[1]}] x[{ring.capacity},"
-                        f"{ring.dim}] float32 k=10",
-               "ring_rows": ring.capacity, "live_rows": live,
-               "inf_rows": ring.capacity - live,
-               "launches": launches["l2_topk"], "max_abs_err": err,
-               "id_agreement": agree, "tol": tol,
-               "inf_rows_entered": inf_entered,
-               "ms": cuda_ms(lambda: cuda.l2_topk(qq, ring.vecs, xsq, 10),
-                             20),
-               "plain_ms": cuda_ms(
-                   lambda: ref.l2_topk_ref(qq, ring.vecs, xsq, 10), 2),
-               "library_ms": cuda_ms(lambda: torch.topk(torch.addmm(
-                   xsq, qq, ring.vecs.T, alpha=-2), 10, largest=False), 2)}
-        b, dd = nq, ring.dim
-        row.update(l2_bound_of(b, ring.capacity, dd, 4, 10))
-        row["bound_live_ms"] = l2_bound_of(b, live, dd, 4, 10)["bound_ms"]
-        _, by, counts = profiled(lambda: [cuda.l2_topk(qq, ring.vecs, xsq, 10)
-                                          for _ in range(20)])
-        row["kernels_ms"] = kernels_ms(by, counts, "l2_")
+        row = shape_row_l2(case, qq, ring.vecs, xsq, 10, launches["l2_topk"],
+                           20, plain_reps=2)
+        row.update(ring_rows=ring.capacity, live_rows=live,
+                   inf_rows=ring.capacity - live, max_abs_err=err,
+                   id_agreement=agree, tol=tol,
+                   inf_rows_entered=inf_entered,
+                   bound_live_ms=l2_bound_of(nq, live, ring.dim, 4,
+                                             10)["bound_ms"])
         if "l2_topk_kernel" not in row["kernels_ms"]:
             failures.append(f"torch.profiler recorded no l2_topk kernel at "
-                            f"the delta scan: {by}")
-        row["device_ms"] = sum(row["kernels_ms"].values())
+                            f"the delta scan: {case}")
         rows.append(row)
         print(f"[mutate] l2_topk {row}", flush=True)
         if not ok or inf_entered:
             failures.append(f"l2_topk disagrees with plain at the {case}")
     return rows, failures
+
+
+def competitors_path(ds, index, darth, results, tol, card):
+    """Phase 7: the paper's competitors against DARTH on phase 2's IVF cell
+    (benchmarks/paper_tables.py:160-205 and Fig 11, as that file runs them):
+    validation queries learn[:512], the LAET / Baseline step log from
+    learn[512:1536], ground truth at k = 10 and the wide ground truth at
+    K' = 100 through l2_topk. DARTH, Baseline (budget_search at the mean
+    dists_to_target), REM (the nprobe grid, then plain_search at the mapped
+    nprobe) and LAET (n0 = 2, tune_laet with 6 steps) at each target, each
+    summarized by core.metrics; the noise sweep at 0.90; the §4.1.5 model
+    selection on phase 2's fit log. Returns (results, launches by kernel on
+    this path, failures, {kernel: [shape rows]})."""
+    import numpy as np
+    import torch
+    from repro_torch import gbdt
+    from repro_torch.core import (baselines, darth_search, engines,
+                                  features, intervals, metrics, training)
+    from repro_torch.core.predictor import regression_metrics
+    from repro_torch.data import vectors
+    from repro_torch.index import flat
+    from repro_torch.kernels import cuda, ops, ref
+    dev = index.device
+    xb = torch.as_tensor(ds.base, device=dev)
+    q = torch.as_tensor(ds.queries, device=dev)
+    nq = q.shape[0]
+    eng = darth.engine
+    out = {"card": card, "targets": {}, "noise": [], "model_selection": []}
+    failures = []
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t_start = time.time()
+    q_val = torch.as_tensor(ds.learn[:512], device=dev)
+    _, gt_val = flat.search(q_val, xb, 10)
+    q_tr = torch.as_tensor(ds.learn[512:1536], device=dev)
+    _, gt_tr = flat.search(q_tr, xb, 10)
+    t0 = time.time()
+    log = training.generate_observations(eng, q_tr, gt_tr, batch=512)
+    out["step_log_s"] = time.time() - t0
+    gt_d, gt_i = flat.search(q, xb, 10)
+    _, gtw_i = flat.search(q, xb, WIDE_K)
+    truth = [t.cpu().numpy() for t in (gt_d, gt_i, gtw_i)]
+    out["wide_gt_shape"] = list(gtw_i.shape)
+
+    t0 = time.time()
+    rem = baselines.fit_rem(
+        lambda p: engines.ivf_engine(index, k=10, nprobe=p), q_val, gt_val,
+        REM_GRID, TARGETS)
+    out["rem"] = {"fit_s": time.time() - t0,
+                  "sweep": {str(p): r for p, r in rem.sweep.items()},
+                  "mapping": {str(t): p for t, p in rem.mapping.items()}}
+    t0 = time.time()
+    laet = baselines.fit_laet(log, n0=LAET_N0, device=dev)
+    out["laet"] = {"fit_s": time.time() - t0}
+    t0 = time.time()
+    laet = baselines.tune_laet(laet, eng, q_val, gt_val, TARGETS,
+                               steps=LAET_STEPS)
+    out["laet"].update(tune_s=time.time() - t0, multipliers={
+        str(t): m for t, m in laet.multipliers.items()})
+    drt = {rt: float(np.mean(intervals.dists_to_target(
+        log.recall, log.ndis, log.valid, rt))) for rt in TARGETS}
+    out["baseline_budget"] = {str(t): v for t, v in drt.items()}
+    print(f"[compete] step log {out['step_log_s']:.1f}s REM {out['rem']} "
+          f"LAET {out['laet']} Baseline budgets {out['baseline_budget']}",
+          flush=True)
+
+    def run(method, qq, rt):
+        """(dists, ids, ndis, host wall s) of one method at one target."""
+        torch.cuda.synchronize()
+        t0 = time.time()
+        e = eng
+        if method == "darth":
+            inner = darth.search(qq, rt)[2].inner
+        elif method == "baseline":
+            inner = darth_search.budget_search(eng, qq, drt[rt])
+        elif method == "rem":
+            e = engines.ivf_engine(index, k=10, nprobe=rem.mapping[rt])
+            inner = darth_search.plain_search(e, qq)
+        else:
+            inner = baselines.laet_search(laet, eng, qq,
+                                          laet.multipliers[rt])
+        dd, ii = e.topk_d(inner), e.topk_i(inner)
+        torch.cuda.synchronize()
+        return dd, ii, inner.ndis, time.time() - t0
+
+    for rt in TARGETS:
+        rows = {}
+        for m in METHODS:
+            dd, ii, nd, wall = run(m, q, rt)
+            if tuple(ii.shape) != (nq, 10):
+                failures.append(f"compete {m} at {rt}: {tuple(ii.shape)} "
+                                f"results")
+                continue
+            row = metrics.summarize(dd.cpu().numpy(), ii.cpu().numpy(),
+                                    *truth, rt)
+            row.update(ndis=float(nd.float().mean()), wall_s=wall,
+                       qps_host=nq / wall)
+            if m == "darth":
+                ids2, st2 = results[rt][:2]
+                row["differ_from_phase2"] = int(
+                    ((ii != ids2).any(1) | (nd != st2.inner.ndis)).sum())
+                if row["differ_from_phase2"]:
+                    failures.append(f"compete darth at {rt}: "
+                                    f"{row['differ_from_phase2']} queries "
+                                    f"differ from phase 2's Darth.search")
+            rows[m] = row
+            print(f"[compete] target {rt:.2f} {m:8s} {row}", flush=True)
+        out["targets"][str(rt)] = rows
+    maps = [rem.mapping[t] for t in TARGETS]
+    if maps != sorted(maps):
+        failures.append(f"compete: REM's mapping falls as the target rises: "
+                        f"{out['rem']['mapping']}")
+
+    for noise in NOISE_PCTS:
+        qn = torch.as_tensor(vectors.noisy_queries(ds.queries, noise, seed=7),
+                             device=dev)
+        _, gt_n = flat.search(qn, xb, 10)
+        plain = darth_search.plain_search(eng, qn)
+        row = {"noise_pct": noise, "ceiling": float(flat.recall_at_k(
+            eng.topk_i(plain), gt_n).mean())}
+        for m in METHODS:
+            _, ii, nd, _ = run(m, qn, NOISE_TARGET)
+            row[m] = float(flat.recall_at_k(ii, gt_n).mean())
+            row[f"{m}_ndis"] = float(nd.float().mean())
+        out["noise"].append(row)
+        print(f"[compete] noise {row}", flush=True)
+
+    # §4.1.5 model selection (benchmarks/paper_tables.py:336-364)
+    flog = darth._last_log
+    mask = flog.valid.reshape(-1)
+    xf = flog.features.reshape(-1, features.NUM_FEATURES)[mask]
+    y = flog.recall.reshape(-1)[mask]
+    sel = np.random.default_rng(0).choice(
+        xf.shape[0], min(200_000, xf.shape[0]), replace=False)
+    xf, y = xf[sel], y[sel]
+    n_hold = int(0.1 * len(y))
+    xtr, ytr, yho = xf[n_hold:], y[n_hold:], y[:n_hold]
+    xho = torch.as_tensor(xf[:n_hold], device=dev)
+    fitted = {}
+    for name, fit in (
+            ("gbdt", lambda: gbdt.fit(xtr, ytr, gbdt.GBDTConfig(
+                num_trees=100, depth=6), device=dev)),
+            ("random_forest", lambda: gbdt.fit_random_forest(
+                xtr[:60_000], ytr[:60_000], num_trees=40, depth=6,
+                device=dev)),
+            ("decision_tree", lambda: gbdt.fit_decision_tree(
+                xtr, ytr, depth=8, device=dev)),
+            ("linear", lambda: gbdt.fit_linear(xtr, ytr, device=dev))):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        p = fitted[name] = fit()
+        pred = (p.predict(xho) if name == "linear"
+                else ops.gbdt_predict(p, xho))
+        torch.cuda.synchronize()
+        m = regression_metrics(pred.cpu().numpy(), yho)
+        row = {"model": name, "mse": m["mse"], "r2": m["r2"],
+               "fit_s": time.time() - t0, "train_rows": int(
+                   min(60_000, len(ytr)) if name == "random_forest"
+                   else len(ytr)), "holdout_rows": n_hold}
+        out["model_selection"].append(row)
+        print(f"[compete] model {row}", flush=True)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.time() - t_start
+    launches = dict(cuda.LAUNCHES)
+    out["launches"] = launches
+    print(f"[compete] launches {launches}", flush=True)
+    for name, nl in launches.items():
+        if nl < 1:
+            failures.append(f"kernel {name} was not launched on the "
+                            f"competitors path")
+
+    # After the counted run: l2_topk at the wide ground truth's k against
+    # its plain version, then the new shapes timed.
+    xsq = (xb ** 2).sum(1)
+    d_k, i_k = cuda.l2_topk(q, xb, xsq, WIDE_K)
+    d_r, i_r = ref.l2_topk_ref(q, xb, xsq, WIDE_K)
+    err, agree, ok = topk_agreement(d_k, i_k, d_r, i_r, tol)
+    if not ok:
+        failures.append(f"l2_topk at k={WIDE_K} disagrees with plain: "
+                        f"max err {err}, id agreement {agree}")
+    del d_r, i_r
+    row = shape_row_l2(f"wide ground truth K'={WIDE_K}, f32", q, xb, xsq,
+                       WIDE_K, launches["l2_topk"], 5)
+    row.update(max_abs_err=err, id_agreement=agree, tol=tol)
+    shapes = {"l2_topk": [row]}
+    print(f"[compete] l2_topk {row}", flush=True)
+    s_val = eng.init(eng.index, q_val)
+    s_q = eng.init(eng.index, q)
+    for _ in range(LAET_N0):
+        s_val, s_q = eng.step(eng.index, s_val), eng.step(eng.index, s_q)
+    gb = launches["gbdt_predict"]
+    shapes["gbdt_predict"] = [
+        shape_row_gbdt("random forest hold-out", xho, fitted["random_forest"],
+                       gb),
+        shape_row_gbdt("decision tree hold-out", xho, fitted["decision_tree"],
+                       gb),
+        shape_row_gbdt(f"LAET, {q_val.shape[0]} validation rows",
+                       darth_search._features(eng, s_val), laet.params, gb),
+        shape_row_gbdt(f"LAET, {nq} test rows", darth_search._features(
+            eng, s_q), laet.params, gb)]
+    for row in shapes["gbdt_predict"]:
+        print(f"[compete] gbdt_predict {row}", flush=True)
+        if row["max_abs_err"] > 1e-5:
+            failures.append(f"gbdt_predict disagrees with plain at "
+                            f"{row['case']}: {row['max_abs_err']}")
+    return out, launches, failures, shapes
+
+
+def cold_path(ds, index, darth, gt, served, r_targets, tol, card):
+    """Phase 8: the cold bucket tier on phase 2's IVF cell and Darth,
+    served as phase 5 serves (64 slots, 4 steps a chunk, phase 5's
+    targets): full residency in plan order against phase 5's IVF f32 run
+    per query; skip honesty on a 256-bucket store (plain_search at
+    nprobe = nlist returns the top-10 of the resident rows and counts
+    exactly them); then 256 resident buckets (lookahead 4, staging 8)
+    in three modes (static, plan, plan + on_boundary) on all test
+    queries and on the drifted slice (rank-1 bucket outside the 256 most
+    populated). Returns (results, launches by kernel on this path,
+    failures, {kernel: [shape rows]})."""
+    import numpy as np
+    import torch
+    from repro_torch.core import darth_search, engines
+    from repro_torch.index import flat, ivf, residency
+    from repro_torch.kernels import cuda
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serve import DarthServer, cold
+    dev = index.device
+    nq = ds.queries.shape[0]
+    q = torch.as_tensor(ds.queries, device=dev)
+    nlist = index.nlist
+    pred, iv = darth.trained.predictor, darth.interval_for_target
+    out = {"card": card, "hot_slots": COLD_SLOTS, "lookahead": COLD_LOOKAHEAD,
+           "staging": COLD_STAGING, "serves": {}}
+    failures = []
+
+    def server(store, **kw):
+        return DarthServer(engines.ivf_engine(store, k=10, nprobe=nlist),
+                           pred, iv, num_slots=SERVE_SLOTS,
+                           steps_per_sync=SERVE_SPS, **kw)
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t_start = time.time()
+    # 1. full residency, in plan order: phase 5's IVF f32 run per query
+    t0 = time.time()
+    tier = cold.make_cold_tier(index, hot_slots=nlist)
+    store = tier.plan(ds.queries, nprobe=nlist, first=COLD_FIRST)
+    torch.cuda.synchronize()
+    out["full_tier_s"] = time.time() - t0
+    tracer = Tracer()
+    res, stats = server(store, tracer=tracer).serve(
+        ds.queries, r_targets, on_boundary=tier.on_boundary)
+    ref_res, ref_tracer = served["ivf_f32_hosts1_traced"]
+    terms, ref_terms = tracer.terminals(), ref_tracer.terminals()
+    parity = {
+        "completed": stats.completed,
+        "ids_differ": sum(not np.array_equal(a[1], b[1])
+                          for a, b in zip(res, ref_res)),
+        "ndis_differ": sum(terms[i].attrs["ndis"] != ref_terms[i].attrs["ndis"]
+                           for i in range(nq)),
+        "slot_order_is_plan": bool((tier.slot_bucket
+                                    != np.arange(nlist)).any())}
+    out["full_residency"] = parity
+    print(f"[cold] full residency ({nlist} slots, plan order) vs phase 5: "
+          f"{parity}", flush=True)
+    if parity["ids_differ"] or parity["ndis_differ"] or \
+            stats.completed != nq:
+        failures.append(f"cold: full residency differs from phase 5's IVF "
+                        f"f32 run: {parity}")
+    del tier, store, res, tracer
+
+    # 2. skip honesty on the 256 most populated buckets
+    tier = cold.make_cold_tier(index, hot_slots=COLD_SLOTS)
+    inner = darth_search.plain_search(
+        engines.ivf_engine(tier.store, k=10, nprobe=nlist), q)
+    sizes = index.bucket_sizes.cpu().numpy()
+    resident = int(sizes[tier.slot_bucket].sum())
+    rows = tier.store.bucket_ids[tier.store.bucket_ids >= 0].long()
+    fd, fi = flat.search(q, torch.as_tensor(ds.base, device=dev)[rows], 10)
+    err, agree, ok = topk_agreement(inner.topk_d, inner.topk_i, fd,
+                                    rows[fi.long()].to(torch.int32), tol)
+    skip = {"resident_rows": resident, "rows_checked": int(rows.shape[0]),
+            "ndis_equal_resident": bool((inner.ndis == resident).all()),
+            "max_abs_err": err, "id_agreement": agree, "tol": tol}
+    out["skip_honesty"] = skip
+    print(f"[cold] skip honesty ({COLD_SLOTS} slots, nprobe {nlist}) "
+          f"{skip}", flush=True)
+    if not ok or not skip["ndis_equal_resident"]:
+        failures.append(f"cold: skip honesty failed: {skip}")
+    del tier, inner, rows, fd, fi
+
+    # 3. 256 resident buckets, three modes, two query sets
+    order, _ = ivf.rank_centroids(index.centroids, q,
+                                  (q * q).sum(1, keepdim=True), 1)
+    top = set(np.argsort(-sizes, kind="stable")[:COLD_SLOTS].tolist())
+    drifted = np.asarray([i for i, b in enumerate(order[:, 0].tolist())
+                          if b not in top], np.int64)
+    out["drifted_queries"] = int(drifted.size)
+    for set_name, sel in (("all", np.arange(nq)), ("drifted", drifted)):
+        if sel.size == 0:
+            failures.append("cold: the drifted slice is empty")
+            continue
+        qs, rts = ds.queries[sel], r_targets[sel]
+        gt_s = gt[torch.as_tensor(sel, device=dev)]
+        for mode in ("static", "plan", "plan_prefetch"):
+            reg = MetricsRegistry()
+            t0 = time.time()
+            tier = cold.make_cold_tier(index, hot_slots=COLD_SLOTS,
+                                       lookahead=COLD_LOOKAHEAD,
+                                       staging=COLD_STAGING, metrics=reg)
+            store = (tier.store if mode == "static" else
+                     tier.plan(qs, nprobe=nlist, first=COLD_FIRST))
+            torch.cuda.synchronize()
+            tier_s = time.time() - t0
+            srv = server(store, metrics=reg)
+            t0 = time.time()
+            res, stats = srv.serve(qs, rts, on_boundary=(
+                tier.on_boundary if mode == "plan_prefetch" else None))
+            torch.cuda.synchronize()
+            row = serve_row(res, stats, time.time() - t0)
+            ids = torch.as_tensor(np.stack([r[1] for r in res]), device=dev)
+            stage = [1e3 * v for v in tier.stage_seconds]
+            row.update(
+                queries=int(sel.size), tier_s=tier_s,
+                recall=serve_recall(res, gt_s, rts),
+                recall_mean=float(flat.recall_at_k(ids, gt_s).mean()),
+                prefetches=tier.prefetches, evictions=tier.evictions,
+                misses=tier.misses, staged_boundaries=len(stage),
+                stage_ms_mean=float(np.mean(stage)) if stage else None,
+                stage_ms_max=max(stage) if stage else None,
+                stage_ms_total=float(sum(stage)),
+                resident_bytes=residency.resident_bytes(
+                    tier.store)["total"],
+                metrics={fam: reg.counter(f"darth_cold_{fam}_total").value()
+                         for fam in ("prefetch", "evictions", "miss")})
+            name = f"{set_name}_{mode}"
+            out["serves"][name] = row
+            print(f"[cold] {name} {row}", flush=True)
+            if stats.completed != sel.size or row["returned"] != sel.size:
+                failures.append(f"cold {name}: {stats.completed} of "
+                                f"{sel.size} completed")
+            if row["metrics"] != {"prefetch": tier.prefetches,
+                                  "evictions": tier.evictions,
+                                  "miss": tier.misses}:
+                failures.append(f"cold {name}: the darth_cold_* metrics "
+                                f"{row['metrics']} differ from the tier's "
+                                f"counters")
+        static = out["serves"][f"{set_name}_static"]["recall_mean"]
+        full = out["serves"][f"{set_name}_plan_prefetch"]["recall_mean"]
+        if full < static:
+            flag = (f"{set_name}: plan + prefetch recall {full:.4f} is "
+                    f"below static's {static:.4f}")
+            out.setdefault("flags", []).append(flag)
+            print(f"[cold] FLAG: {flag}", flush=True)
+    torch.cuda.synchronize()
+    out["full_store_bytes"] = residency.resident_bytes(index)["total"]
+    out["wall_s"] = time.time() - t_start
+    launches = dict(cuda.LAUNCHES)
+    out["launches"] = launches
+    print(f"[cold] launches {launches}", flush=True)
+    for name, nl in launches.items():
+        if nl < 1:
+            failures.append(f"kernel {name} was not launched on the cold "
+                            f"path")
+
+    # bucket_probe at the cold serve's chunk shape over the last 256-slot
+    # store: the pool's queries at their first probe, every fourth slot
+    # free, cold buckets masked out as probe_step masks them.
+    st = ivf.init_state(tier.store, q[:SERVE_SLOTS], k=10, nprobe=nlist)
+    slot = tier.store.hot_map[st.probe_order[:, 0].long()]
+    free = torch.arange(SERVE_SLOTS, device=dev) % 4 == 3
+    act = (slot >= 0) & ~free
+    slot = slot.clamp_min(0).contiguous()
+    args = (st.q, tier.store.bucket_vecs, tier.store.bucket_sqnorm,
+            tier.store.bucket_ids, slot, act, st.qsq,
+            st.topk_d[:, -1:].contiguous(), st.topk_d, st.topk_i)
+    row, ok = shape_row_probe(f"cold serve chunk step, {COLD_SLOTS}-slot "
+                              f"store", tier.store, args, tol,
+                              launches["bucket_probe"])
+    print(f"[cold] bucket_probe {row}", flush=True)
+    if not ok:
+        failures.append("bucket_probe disagrees with plain at the cold "
+                        "chunk shape")
+    return out, launches, failures, {"bucket_probe": [row]}
 
 
 def main() -> int:
@@ -1184,6 +1666,15 @@ def main() -> int:
         return fail("the port pulled in jax or the reference package")
 
     # -- 1. device ------------------------------------------------------------
+    walls = {}
+    t_phase = [T_START]
+
+    def phase_done(name):
+        """Host wall seconds since the previous phase ended."""
+        now = time.time()
+        walls[name] = now - t_phase[0]
+        t_phase[0] = now
+
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1204,6 +1695,7 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
 
+    phase_done("1 device")
     # -- 2. main path ---------------------------------------------------------
     t0 = time.time()
     ds = vectors.make_dataset(n=args.n, d=args.dim, num_learn=args.learn,
@@ -1296,6 +1788,7 @@ def main() -> int:
     main["step_log_batch"] = trace
     print(f"[trace] one fit batch's step log: {trace}", flush=True)
 
+    phase_done("2 main path")
     # -- 3. kernels against their plain versions --------------------------------
     kernels = []
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -1323,10 +1816,6 @@ def main() -> int:
         ("HNSW fit ground truth, f32", qg, x[:HNSW_N], xsq[:HNSW_N], 10, 0,
          5)]
 
-    def l2_bound(qq, xx, kk):
-        return l2_bound_of(qq.shape[0], xx.shape[0], xx.shape[1],
-                           xx.element_size(), kk, xx.dtype == torch.float32)
-
     l2_shapes, checks = [], []
     for case, qq, xx, sq, kk, nl, reps in l2_cases:
         d_k, i_k = cuda.l2_topk(qq, xx, sq, kk)
@@ -1338,28 +1827,12 @@ def main() -> int:
         if not ok:
             return fail(f"l2_topk disagrees with plain: {checks}")
         del d_r, i_r
-        xf = xx.float()
-        row = {"case": case, "shape": f"q[{qq.shape[0]},{qq.shape[1]}] "
-               f"x[{xx.shape[0]},{xx.shape[1]}] {xx.dtype} k={kk}",
-               "launches": nl,
-               "ms": cuda_ms(lambda: cuda.l2_topk(qq, xx, sq, kk), reps),
-               "plain_ms": cuda_ms(lambda: ref.l2_topk_ref(qq, xx, sq, kk), 1),
-               # x_sqnorm - 2 q.x and its k smallest, in PyTorch's calls
-               # (int8 codes widened to f32 outside the timing).
-               "library_ms": cuda_ms(lambda: torch.topk(torch.addmm(
-                   sq, qq, xf.T, alpha=-2), kk, largest=False), 1)}
-        row.update(l2_bound(qq, xx, kk))
-        _, by, counts = profiled(lambda: [cuda.l2_topk(qq, xx, sq, kk)
-                                          for _ in range(reps)])
-        row["kernels_ms"] = kernels_ms(by, counts, "l2_")
-        row["profiled_launches"] = {k: counts[k] for k in by if "l2_" in k}
-        row["profiled_calls"] = reps
+        row = shape_row_l2(case, qq, xx, sq, kk, nl, reps)
         if "l2_topk_kernel" not in row["kernels_ms"]:
-            return fail(f"torch.profiler recorded no l2_topk kernel: {by}")
-        row["device_ms"] = sum(row["kernels_ms"].values())
+            return fail(f"torch.profiler recorded no l2_topk kernel at "
+                        f"{case}")
         l2_shapes.append(row)
         print(f"[kernels] l2_topk {row}", flush=True)
-        del xf
     # On SIFT-range integers every product and partial sum is exact in the
     # kernel's split TF32, so it must equal the plain version bit for bit.
     gen_i = torch.Generator(device=dev).manual_seed(0)
@@ -1544,7 +2017,7 @@ def main() -> int:
     # samples, as Darth.fit passes them to fit_predictor).
     p = trained.predictor.params
     log = darth._last_log
-    nt, nint = p.feat.shape
+    nt = p.feat.shape[0]
     nf = log.features.shape[-1]
     pick = torch.randint(0, log.features.shape[0], (256,), generator=gen)
     feats = torch.as_tensor(
@@ -1579,41 +2052,22 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             return fail(f"gbdt_predict is not deterministic ({case})")
-        want = ref.gbdt_predict_ref(*gargs)
-        errg = float((got - want).abs().max())
-        if errg > 1e-5:
-            return fail(f"gbdt_predict disagrees with plain ({case}): {errg}")
-        b = xx.shape[0]
-        byts = 4.0 * (2 * nt * nint + nt * (nint + 1)) + 4.0 * b * (nf + 1)
-        flop = float(b) * nt * (p.depth + 1)
-        t_b, t_f = byts / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
-        row = {"case": case, "shape": f"x[{b},{nf}] trees={nt} "
-               f"depth={p.depth}", "B": b, "launches": nl,
-               "max_abs_err": errg, "bit_equal": True,
-               "ms": cuda_ms(lambda: cuda.gbdt_predict(*gargs), reps),
-               "plain_ms": cuda_ms(lambda: ref.gbdt_predict_ref(*gargs), 5),
-               "bound_ms": 1e3 * max(t_b, t_f),
-               "bound_by": "bytes" if t_b >= t_f else "operations",
-               "lookup_figure_ms": 1e3 * b * nt * (2 * p.depth + 1)
-               / SMEM_LOOKUPS_PER_S,
-               "launch_floor_ms": floor_ms,
-               "launch_floor_device_ms": floor_dev,
-               "plan": plan(b, nf, nt, p.depth) if plan else None}
+        row = shape_row_gbdt(case, xx, p, nl, reps)
+        if row["max_abs_err"] > 1e-5:
+            return fail(f"gbdt_predict disagrees with plain ({case}): "
+                        f"{row['max_abs_err']}")
+        if "gbdt_predict_kernel" not in row["kernels_ms"]:
+            return fail(f"torch.profiler recorded no gbdt_predict kernel "
+                        f"({case})")
+        row.update(bit_equal=True, launch_floor_ms=floor_ms,
+                   launch_floor_device_ms=floor_dev,
+                   plan=plan(xx.shape[0], nf, nt, p.depth) if plan else None)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
             cuda.gbdt_predict(*gargs)
         row["host_ms"] = 1e3 * (time.perf_counter() - t0) / reps
         torch.cuda.synchronize()
-        _, by, counts = profiled(lambda: [cuda.gbdt_predict(*gargs)
-                                          for _ in range(reps)])
-        row["kernels_ms"] = kernels_ms(by, counts, "gbdt")
-        row["profiled_launches"] = {k: counts[k] for k in by if "gbdt" in k}
-        row["profiled_calls"] = reps
-        if "gbdt_predict_kernel" not in row["kernels_ms"]:
-            return fail(f"torch.profiler recorded no gbdt_predict kernel: "
-                        f"{by}")
-        row["device_ms"] = sum(row["kernels_ms"].values())
         gshapes.append(row)
         print(f"[kernels] gbdt_predict {row}", flush=True)
     top = gshapes[0]
@@ -1627,6 +2081,7 @@ def main() -> int:
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None, "shape": top["shape"], "shapes": gshapes})
 
+    phase_done("3 kernels")
     # -- 4. hnsw path ----------------------------------------------------------
     hnsw_out, hnsw_launches, failures, hnsw_fitted = hnsw_path(
         ds.base[:HNSW_N], ds.learn, q)
@@ -1634,12 +2089,14 @@ def main() -> int:
         return fail("; ".join(failures))
     l2_shapes[-1]["launches"] = hnsw_launches["l2_topk"]
 
+    phase_done("4 hnsw")
     # -- 5. serve path -----------------------------------------------------------
-    serve_out, serve_launches, failures = serve_path(
+    serve_out, serve_launches, failures, served, serve_targets = serve_path(
         ds, index, darth, gt, hnsw_fitted, card)
     if failures:
         return fail("; ".join(failures))
 
+    phase_done("5 serve")
     # -- 6. mutate path ------------------------------------------------------------
     t0 = time.time()
     mutate_out, mutate_launches, failures, ring = mutate_path(
@@ -1653,27 +2110,56 @@ def main() -> int:
         return fail("; ".join(failures))
     mutate_out["wall_s"] = time.time() - t0
     print(f"[mutate] phase 6 took {mutate_out['wall_s']:.1f}s", flush=True)
-    extra_shapes = dict(serve_out["kernel_shapes"])
-    extra_shapes["l2_topk"] = delta_rows
+
+    phase_done("6 mutate")
+    # -- 7. competitors -------------------------------------------------------------
+    compete_out, compete_launches, failures, compete_shapes = \
+        competitors_path(ds, index, darth, results, tol, card)
+    if failures:
+        return fail("; ".join(failures))
+    print(f"[compete] phase 7 took {compete_out['wall_s']:.1f}s", flush=True)
+
+    phase_done("7 competitors")
+    # -- 8. cold tier ------------------------------------------------------------------
+    cold_out, cold_launches, failures, cold_shapes = cold_path(
+        ds, index, darth, gt, served, serve_targets, btol, card)
+    if failures:
+        return fail("; ".join(failures))
+    print(f"[cold] phase 8 took {cold_out['wall_s']:.1f}s", flush=True)
+    del served
+    phase_done("8 cold")
+    print(f"[main] phase wall s {walls}", flush=True)
+
+    extra_shapes = {name: [] for name in _build.KERNELS}
+    for shapes in (serve_out["kernel_shapes"], {"l2_topk": delta_rows},
+                   compete_shapes, cold_shapes):
+        for name, rows in shapes.items():
+            extra_shapes[name] += rows
     for row in kernels:
-        extra = extra_shapes.get(row["name"], [])
+        extra = extra_shapes[row["name"]]
         row["shapes"] += extra
         row["max_abs_err"] = max([row["max_abs_err"]]
                                  + [sh["max_abs_err"] for sh in extra])
         by_path = {"ivf": launches[row["name"]],
                    "hnsw": hnsw_launches[row["name"]],
                    "serve": serve_launches[row["name"]],
-                   "mutate": mutate_launches[row["name"]]}
+                   "mutate": mutate_launches[row["name"]],
+                   "competitors": compete_launches[row["name"]],
+                   "cold": cold_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
     kname = torch.cuda.get_device_name(0)
     out = {"card": card, "kind": kname, "torch": torch.__version__,
-           "args": vars(args), "main_path": main, "hnsw_path": hnsw_out,
+           "args": vars(args), "phase_wall_s": walls,
+           "main_path": main, "hnsw_path": hnsw_out,
            "serve_path": serve_out, "mutate_path": mutate_out,
+           "competitors_path": compete_out, "cold_path": cold_out,
            "kernels": kernels, "launches": launches,
            "hnsw_launches": hnsw_launches, "serve_launches": serve_launches,
-           "mutate_launches": mutate_launches}
+           "mutate_launches": mutate_launches,
+           "competitors_launches": compete_launches,
+           "cold_launches": cold_launches}
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
     with open(os.path.join(HERE, "results", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1, default=float)
@@ -1681,6 +2167,8 @@ def main() -> int:
     print(json.dumps({"hnsw_path": hnsw_out}, default=float))
     print(json.dumps({"serve_path": serve_out}, default=float))
     print(json.dumps({"mutate_path": mutate_out}, default=float))
+    print(json.dumps({"competitors_path": compete_out}, default=float))
+    print(json.dumps({"cold_path": cold_out}, default=float))
     print(json.dumps({"kernels": kernels}, default=float))
     print(f"[main] chip_smoke.py took {time.time() - T_START:.1f}s",
           flush=True)

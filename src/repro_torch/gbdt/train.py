@@ -9,6 +9,10 @@ The recall predictor's trainer, as in ``repro.gbdt.train``:
   * squared loss, shrinkage, L2 leaf regularization, min-child-weight,
   * a Python loop over trees on the tensors' device.
 
+Also the paper's §4.1.5 comparison models, as the reference has them:
+random forest (the same grower on Poisson(1) bootstrap weights, leaves
+averaged), a single decision tree and ridge linear regression.
+
 ``index_add_`` on the card adds in no fixed order, so histogram sums may
 differ from the reference's in the last bits and a near-tie split may go
 the other way; the fit is held to the reference's held-out error, not to
@@ -152,3 +156,63 @@ def fit(x: np.ndarray, y: np.ndarray, cfg: GBDTConfig = GBDTConfig(),
         leaves.append(leaf)
     return GBDTParams(feat=torch.stack(feats), thresh=torch.stack(thrs),
                       leaf=torch.stack(leaves), base=base)
+
+
+def fit_random_forest(x: np.ndarray, y: np.ndarray, num_trees: int = 100,
+                      depth: int = 6, num_bins: int = 64, l2: float = 1.0,
+                      min_child_weight: float = 20.0, seed: int = 0,
+                      device="cuda") -> GBDTParams:
+    """Random forest via the same grower: each tree fits y from scratch on
+    a Poisson(1) bootstrap (drawn from ``default_rng(seed)`` as the
+    reference draws it, so the weights are the reference's); leaves are
+    pre-scaled by 1/T so that the ensemble sum averages."""
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.float32)
+    n = x.shape[0]
+    rng = np.random.default_rng(seed)
+    edges = torch.as_tensor(compute_bin_edges(x, num_bins), device=device)
+    xb = bin_data(torch.as_tensor(x, device=device), edges)
+    base = float(np.mean(y))
+    grad = torch.as_tensor(-(y - base), dtype=torch.float32, device=device)
+    feats, thrs, leaves = [], [], []
+    for _ in range(num_trees):
+        w = torch.as_tensor(rng.poisson(1.0, n).astype(np.float32),
+                            device=device)
+        feat, thr, leaf, _ = _grow_tree(xb, grad, w, depth, num_bins, l2,
+                                        min_child_weight, 1.0)
+        feats.append(feat)
+        thrs.append(_bins_to_raw_thresholds(feat, thr, edges))
+        leaves.append(leaf / num_trees)
+    return GBDTParams(feat=torch.stack(feats), thresh=torch.stack(thrs),
+                      leaf=torch.stack(leaves),
+                      base=torch.tensor(base, dtype=torch.float32,
+                                        device=device))
+
+
+def fit_decision_tree(x: np.ndarray, y: np.ndarray, depth: int = 8,
+                      num_bins: int = 64, device="cuda") -> GBDTParams:
+    return fit(x, y, GBDTConfig(num_trees=1, depth=depth, learning_rate=1.0,
+                                num_bins=num_bins, min_child_weight=5.0),
+               device=device)
+
+
+class LinearModel(NamedTuple):
+    w: torch.Tensor
+    b: torch.Tensor
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.w + self.b
+
+
+def fit_linear(x: np.ndarray, y: np.ndarray, ridge: float = 1e-3,
+               device="cuda") -> LinearModel:
+    """Ridge regression on standardized features, solved in f32."""
+    x = torch.as_tensor(np.asarray(x, np.float32), device=device)
+    y = torch.as_tensor(np.asarray(y, np.float32), device=device)
+    mu = x.mean(0)
+    sd = x.std(0, correction=0) + 1e-8
+    xs = (x - mu) / sd
+    a = xs.T @ xs + ridge * torch.eye(x.shape[1], device=device)
+    w = torch.linalg.solve(a, xs.T @ (y - y.mean()))
+    w_raw = w / sd
+    return LinearModel(w=w_raw, b=y.mean() - mu @ w_raw)

@@ -34,9 +34,10 @@ class IVFIndex:
     # (ones/zeros) for f32 storage.
     scale: torch.Tensor          # f32[D]
     offset: torch.Tensor         # f32[D]
-    # The reference's cold-tier indirection; this port does not serve a
-    # cold tier yet, and init_state / probe_step raise when it is set.
-    hot_map: Optional[torch.Tensor] = None
+    # Cold tier (serve.cold): when set, bucket_vecs/ids/sqnorm hold only
+    # the RESIDENT buckets and hot_map[bucket] names the slot a bucket
+    # occupies (-1 = cold, not resident).
+    hot_map: Optional[torch.Tensor] = None   # i32[nlist]
 
     @property
     def quantized(self) -> bool:
@@ -165,12 +166,6 @@ class IVFSearchState:
     ninserts: torch.Tensor     # i32[B] result-set updates so far
 
 
-def _no_cold_tier(index: IVFIndex) -> None:
-    if index.hot_map is not None:
-        raise NotImplementedError(
-            "IVFIndex.hot_map (the cold bucket tier) is not ported yet")
-
-
 def rank_centroids(centroids: torch.Tensor, qf: torch.Tensor,
                    qsq: torch.Tensor, nprobe: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -199,7 +194,6 @@ def fresh_state(qf: torch.Tensor, qsq: torch.Tensor, order: torch.Tensor,
 
 def init_state(index: IVFIndex, q: torch.Tensor, *, k: int,
                nprobe: int) -> IVFSearchState:
-    _no_cold_tier(index)
     qf = q.float().contiguous()
     qsq = (qf ** 2).sum(1, keepdim=True)
     order, first_nn = rank_centroids(index.centroids, qf, qsq, nprobe)
@@ -209,13 +203,22 @@ def init_state(index: IVFIndex, q: torch.Tensor, *, k: int,
 def probe_step(index: IVFIndex, s: IVFSearchState) -> IVFSearchState:
     """Scan one bucket per active query; merge the top-k; bump counters.
 
-    Inactive queries keep their state and read no bucket."""
-    _no_cold_tier(index)
+    Inactive queries keep their state and read no bucket. With a cold
+    tier (``index.hot_map``), a bucket that is not resident is SKIPPED:
+    the probe position still advances, but the query reads nothing and
+    its ``ndis`` and ``ninserts`` stay, so a cold hit never stalls the
+    step (serve.cold prefetches ahead of the probe order)."""
     k = s.topk_d.shape[1]
     nprobe = s.probe_order.shape[1]
     pos = s.probe_pos.clamp_max(nprobe - 1)
     bucket = torch.gather(s.probe_order, 1, pos[:, None].long())[:, 0]
     sizes = index.bucket_sizes[bucket.long()]   # full per-bucket sizes
+    if index.hot_map is not None:
+        slot = index.hot_map[bucket.long()]
+        scan = s.active & (slot >= 0)
+        slot = slot.clamp_min(0)
+    else:
+        slot, scan = bucket, s.active
 
     if index.quantized:
         # asymmetric SQ8 via the kernel's bias term:
@@ -227,7 +230,7 @@ def probe_step(index: IVFIndex, s: IVFSearchState) -> IVFSearchState:
         bias = s.qsq
     new_d, new_i, cnt = ops.bucket_probe_slots(
         q_eff.contiguous(), index.bucket_vecs, index.bucket_sqnorm,
-        index.bucket_ids, bucket.contiguous(), s.active, bias.contiguous(),
+        index.bucket_ids, slot.contiguous(), scan, bias.contiguous(),
         s.topk_d[:, -1:].contiguous(), s.topk_d, s.topk_i)
     inserts = cnt.clamp_max(k)   # the kernel's count is unclipped
     zero = torch.zeros_like(sizes)
@@ -237,8 +240,8 @@ def probe_step(index: IVFIndex, s: IVFSearchState) -> IVFSearchState:
         probe_pos=done_probes,
         topk_d=new_d, topk_i=new_i,
         active=s.active & (done_probes < nprobe),
-        ndis=s.ndis + torch.where(s.active, sizes, zero),
-        ninserts=s.ninserts + torch.where(s.active, inserts, zero),
+        ndis=s.ndis + torch.where(scan, sizes, zero),
+        ninserts=s.ninserts + torch.where(scan, inserts, zero),
     )
 
 

@@ -72,23 +72,39 @@
 //    per-range lists in range order (range s holds only rows below s+1's).
 //  * Tile sizes are the library's alone: l2_topk_tiles() reports them to
 //    the wrapper, which sizes nsplit from them.
+//  * k is bucketed at compile time: lists of up to 64 and of up to 128
+//    (the evaluation's wide ground truth takes k = 100). A block keeps its
+//    queries' running lists in shared memory beside the ring, 8 k BQ bytes:
+//    at k <= 64 a 128-query block takes 215 KB with f32 codes; at k <= 128
+//    it would take 280 KB, over the 227 KB a block may have. So the 128
+//    bucket runs blocks of BQ = 64 queries, one warp row of 4 warps (177 KB),
+//    each warp keeping the same 64 x 32 accumulator tile; the 64 bucket is
+//    the 128-query block above, unchanged.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 128, BN = 128, BK = 64;  // block tile: queries, rows, depth
-constexpr int kWarpsM = 2, kWarpsN = 4;     // warp grid over (BQ, BN)
-constexpr int WM = BQ / kWarpsM, WN = BN / kWarpsN;  // 64 x 32 per warp
+constexpr int BN = 128, BK = 64;            // block tile: rows, depth
+constexpr int kWarpsN = 4;                  // warps along BN
+constexpr int WM = 64, WN = BN / kWarpsN;   // 64 x 32 per warp
 constexpr int MT = WM / 16, NT = WN / 8;    // mma tiles per warp
-constexpr int kThreads = kWarpsM * kWarpsN * 32;
 constexpr int kStages = 2;
-constexpr int kMaxK = 64;
 constexpr int kMaskWords = BN / 32;
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(WN == 32, "a warp's columns are one mask word");
-static_assert(BQ % 32 == 0, "whole warps merge, one query per thread");
+
+// The block for lists of up to KMAX entries (64 or 128): BQ queries, a
+// kWarpsM x kWarpsN warp grid, kThreads threads.
+template <int KMAX>
+struct Tile {
+  static_assert(KMAX == 64 || KMAX == 128, "k buckets are 64 and 128");
+  static constexpr int BQ = KMAX <= 64 ? 128 : 64;
+  static constexpr int kWarpsM = BQ / WM;
+  static constexpr int kThreads = kWarpsM * kWarpsN * 32;
+  static_assert(BQ % 32 == 0, "whole warps merge, one query per thread");
+};
 
 // Words to add to a row of `words` so that rows start `step` words apart
 // modulo `mod`.
@@ -111,12 +127,12 @@ template <> struct Code<float> { using raw = float; static constexpr int row = s
 template <> struct Code<__nv_bfloat16> { using raw = uint16_t; static constexpr int row = staged_row(2); };
 template <> struct Code<int8_t> { using raw = int8_t; static constexpr int row = staged_row(1); };
 
-template <typename T>
+template <typename T, int BQ>
 __host__ __device__ constexpr int stage_bytes() { return BQ * kQRow + BN * Code<T>::row; }
 // A ring slot: one stage, or a tile's distances once its stage is consumed.
-template <typename T>
+template <typename T, int BQ>
 __host__ __device__ constexpr int slot_bytes() {
-  return stage_bytes<T>() > BQ * BN * 4 ? stage_bytes<T>() : BQ * BN * 4;
+  return stage_bytes<T, BQ>() > BQ * BN * 4 ? stage_bytes<T, BQ>() : BQ * BN * 4;
 }
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
@@ -176,20 +192,30 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// See bucket_probe.cu: insert at #(entries <= d) into a list of K <= 64.
+// See bucket_probe.cu: insert at #(entries <= d) into a list of K <= 32 W;
+// lane l holds entries l, l + 32, ... (W of them).
+template <int W>
 __device__ __forceinline__ void warp_insert(float* ld, int* li, int K,
                                             float d, int id, int lane) {
-  const bool ha = lane < K, hb = lane + 32 < K;
-  const float a = ha ? ld[lane] : 0.f;
-  const float b = hb ? ld[lane + 32] : 0.f;
-  const int ia = ha ? li[lane] : 0;
-  const int ib = hb ? li[lane + 32] : 0;
-  const int pos = __popc(__ballot_sync(kFull, ha && a <= d)) +
-                  __popc(__ballot_sync(kFull, hb && b <= d));
+  bool h[W];
+  float a[W];
+  int ia[W];
+#pragma unroll
+  for (int u = 0; u < W; ++u) h[u] = lane + 32 * u < K;
+#pragma unroll
+  for (int u = 0; u < W; ++u) a[u] = h[u] ? ld[lane + 32 * u] : 0.f;
+#pragma unroll
+  for (int u = 0; u < W; ++u) ia[u] = h[u] ? li[lane + 32 * u] : 0;
+  int pos = 0;
+#pragma unroll
+  for (int u = 0; u < W; ++u) pos += __popc(__ballot_sync(kFull, h[u] && a[u] <= d));
   if (pos >= K) return;
   __syncwarp();
-  if (lane >= pos && lane + 1 < K) { ld[lane + 1] = a; li[lane + 1] = ia; }
-  if (lane + 32 >= pos && lane + 33 < K) { ld[lane + 33] = b; li[lane + 33] = ib; }
+#pragma unroll
+  for (int u = 0; u < W; ++u) {
+    const int j = lane + 32 * u;
+    if (j >= pos && j + 1 < K) { ld[j + 1] = a[u]; li[j + 1] = ia[u]; }
+  }
   __syncwarp();
   if (lane == 0) { ld[pos] = d; li[pos] = id; }
   __syncwarp();
@@ -198,7 +224,7 @@ __device__ __forceinline__ void warp_insert(float* ld, int* li, int K,
 // Stage chunk `d0` of query block `qb` and of database tile `n0` (rows below
 // n_hi) into `stage`: q as [BQ][kQRow bytes] f32, x as [BN][Code<T>::row
 // bytes] raw codes, zero past B, n_hi and D.
-template <typename T>
+template <typename T, int BQ, int kThreads>
 __device__ __forceinline__ void load_stage(char* stage, const float* q,
                                            const T* x, int qb, int n0, int n_hi,
                                            int d0, int B, int D, bool vec,
@@ -238,19 +264,20 @@ __device__ __forceinline__ void load_stage(char* stage, const float* q,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(Tile<KMAX>::kThreads, 1)
 l2_topk_kernel(const float* __restrict__ q, const T* __restrict__ x,
                const float* __restrict__ xsq, float* __restrict__ out_d,
                int* __restrict__ out_i, int B, int N, int D, int K,
                int rows_per_split, bool vec) {
   using R = typename Code<T>::raw;
+  constexpr int BQ = Tile<KMAX>::BQ, kThreads = Tile<KMAX>::kThreads;
   constexpr bool kSplitX = sizeof(R) == 4;  // only f32 codes have a lo part
   extern __shared__ __align__(16) char smem[];
   // What a query owns lies along its own column (index + j * BQ), so the
   // thread that merges query r reads and writes bank r % 32 only.
   char* ring = smem;                                             // kStages slots
-  unsigned* mask = reinterpret_cast<unsigned*>(smem + kStages * slot_bytes<T>());  // [kMaskWords][BQ]
+  unsigned* mask = reinterpret_cast<unsigned*>(smem + kStages * slot_bytes<T, BQ>());  // [kMaskWords][BQ]
   float* ld = reinterpret_cast<float*>(mask + kMaskWords * BQ);  // [K][BQ]
   int* li = reinterpret_cast<int*>(ld + K * BQ);                 // [K][BQ]
 
@@ -268,7 +295,7 @@ l2_topk_kernel(const float* __restrict__ q, const T* __restrict__ x,
 
   auto prefetch = [&](int s) {
     if (s < steps)
-      load_stage<T>(ring + (s % kStages) * slot_bytes<T>(), q, x, qb,
+      load_stage<T, BQ, kThreads>(ring + (s % kStages) * slot_bytes<T, BQ>(), q, x, qb,
                     n_lo + (s / nk) * BN, n_hi, (s % nk) * BK, B, D, vec, tid);
     cp_async_commit();
   };
@@ -298,7 +325,7 @@ l2_topk_kernel(const float* __restrict__ q, const T* __restrict__ x,
         }
     }
 
-    char* stage = ring + (s % kStages) * slot_bytes<T>();
+    char* stage = ring + (s % kStages) * slot_bytes<T, BQ>();
     const float* sq = reinterpret_cast<const float*>(stage) + (wm * WM + g) * (kQRow / 4);
     const R* sx = reinterpret_cast<const R*>(stage + BQ * kQRow +
                                              (wn * WN + g) * Code<T>::row);
@@ -480,13 +507,14 @@ l2_topk_kernel(const float* __restrict__ q, const T* __restrict__ x,
 }
 
 // One warp per query: merge the nsplit ascending lists [nsplit, B, K] in
-// range order (range s holds only rows below range s+1's).
+// range order (range s holds only rows below range s+1's). K <= KMAX.
+template <int KMAX>
 __global__ void __launch_bounds__(256)
 l2_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
                 float* __restrict__ out_d, int* __restrict__ out_i, int B, int K,
                 int nsplit) {
-  __shared__ float lds[8][kMaxK];
-  __shared__ int lis[8][kMaxK];
+  __shared__ float lds[8][KMAX];
+  __shared__ int lis[8][KMAX];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * 8 + warp;
   if (b >= B) return;  // whole warp
@@ -504,8 +532,8 @@ l2_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i
       while (m) {
         const int src = __ffs(m) - 1;
         m &= m - 1;
-        warp_insert(L, I, K, __shfl_sync(kFull, d, src), __shfl_sync(kFull, id, src),
-                    lane);
+        warp_insert<KMAX / 32>(L, I, K, __shfl_sync(kFull, d, src),
+                             __shfl_sync(kFull, id, src), lane);
       }
     }
   }
@@ -515,14 +543,15 @@ l2_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i
   }
 }
 
-template <typename T>
+template <typename T, int KMAX>
 cudaError_t launch(const float* q, const void* x, const float* xsq, float* out_d,
                    int* out_i, float* part_d, int* part_i, int B, int N, int D, int K,
                    int nsplit, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kStages) * slot_bytes<T>() +
+  constexpr int BQ = Tile<KMAX>::BQ;
+  const size_t smem = static_cast<size_t>(kStages) * slot_bytes<T, BQ>() +
                       sizeof(unsigned) * kMaskWords * BQ +
                       (sizeof(float) + sizeof(int)) * K * BQ;
-  cudaError_t e = cudaFuncSetAttribute(l2_topk_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(l2_topk_kernel<T, KMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -535,20 +564,35 @@ cudaError_t launch(const float* q, const void* x, const float* xsq, float* out_d
   const dim3 grid((B + BQ - 1) / BQ, nsplit);
   float* td = nsplit > 1 ? part_d : out_d;
   int* ti = nsplit > 1 ? part_i : out_i;
-  l2_topk_kernel<T><<<grid, kThreads, smem, stream>>>(
+  l2_topk_kernel<T, KMAX><<<grid, Tile<KMAX>::kThreads, smem, stream>>>(
       q, static_cast<const T*>(x), xsq, td, ti, B, N, D, K, rows_per_split, vec);
   e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return e;
-  l2_merge_kernel<<<(B + 7) / 8, 256, 0, stream>>>(part_d, part_i, out_d, out_i, B, K,
-                                                   nsplit);
+  l2_merge_kernel<KMAX><<<(B + 7) / 8, 256, 0, stream>>>(part_d, part_i, out_d, out_i,
+                                                         B, K, nsplit);
   return cudaGetLastError();
 }
 
+// The smallest k bucket that holds K.
+template <typename T>
+cudaError_t launch_k(const float* q, const void* x, const float* xsq, float* out_d,
+                     int* out_i, float* part_d, int* part_i, int B, int N, int D, int K,
+                     int nsplit, cudaStream_t stream) {
+  if (K <= 64)
+    return launch<T, 64>(q, x, xsq, out_d, out_i, part_d, part_i, B, N, D, K, nsplit,
+                         stream);
+  return launch<T, 128>(q, x, xsq, out_d, out_i, part_d, part_i, B, N, D, K, nsplit,
+                        stream);
+}
+
+constexpr int kMaxK = 128;  // the largest k bucket
+
 }  // namespace
 
-// The block tile: queries and database rows per block of l2_topk_kernel.
-extern "C" void l2_topk_tiles(int* queries, int* rows) {
-  *queries = BQ;
+// The block tile for lists of k entries (1 <= k <= kMaxK): queries and
+// database rows per block of l2_topk_kernel.
+extern "C" void l2_topk_tiles(int k, int* queries, int* rows) {
+  *queries = k <= 64 ? Tile<64>::BQ : Tile<128>::BQ;
   *rows = BN;
 }
 
@@ -564,12 +608,12 @@ extern "C" int l2_topk_launch(const float* q, const void* x, int x_dtype,
   if (K < 1 || K > kMaxK || N < 1 || D < 1 || nsplit < 1 || nsplit > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (x_dtype) {
-    case 0: return launch<float>(q, x, xsq, out_d, out_i, part_d, part_i, B, N, D, K,
-                                 nsplit, stream);
-    case 1: return launch<__nv_bfloat16>(q, x, xsq, out_d, out_i, part_d, part_i, B, N, D,
-                                         K, nsplit, stream);
-    case 2: return launch<int8_t>(q, x, xsq, out_d, out_i, part_d, part_i, B, N, D, K,
-                                  nsplit, stream);
+    case 0: return launch_k<float>(q, x, xsq, out_d, out_i, part_d, part_i, B, N, D, K,
+                                   nsplit, stream);
+    case 1: return launch_k<__nv_bfloat16>(q, x, xsq, out_d, out_i, part_d, part_i, B, N,
+                                           D, K, nsplit, stream);
+    case 2: return launch_k<int8_t>(q, x, xsq, out_d, out_i, part_d, part_i, B, N, D, K,
+                                    nsplit, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

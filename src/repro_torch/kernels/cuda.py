@@ -17,7 +17,8 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in _build.KERNELS}
-MAX_K = 64
+MAX_K = 64        # bucket_probe's list length
+L2_MAX_K = 128    # l2_topk's largest k bucket (the wide ground truth's 100)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -71,9 +72,9 @@ def _launch(name: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _check_k(k: int) -> None:
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside the kernels' range [1, {MAX_K}]")
+def _check_k(k: int, most: int = MAX_K) -> None:
+    if not 1 <= k <= most:
+        raise ValueError(f"k={k} outside the kernel's range [1, {most}]")
 
 
 def _cuda_device(t) -> torch.device:
@@ -85,11 +86,12 @@ def _cuda_device(t) -> torch.device:
 def l2_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
             k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """k smallest of ``x_sqnorm - 2 q.x`` per row (see ref.l2_topk_ref).
-    q f32[B, D]; x [N, D] f32/bf16/int8; x_sqnorm f32[N]."""
+    q f32[B, D]; x [N, D] f32/bf16/int8; x_sqnorm f32[N]; 1 <= k <=
+    L2_MAX_K."""
     dev = _cuda_device(q)
     b, d = q.shape
     n = x.shape[0]
-    _check_k(k)
+    _check_k(k, L2_MAX_K)
     _need(q, "q", dev, (torch.float32,), (b, d))
     _need(x, "x", dev, tuple(_DTYPE_CODE), (n, d))
     _need(x_sqnorm, "x_sqnorm", dev, (torch.float32,), (n,))
@@ -102,7 +104,7 @@ def l2_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
     # wave saves: each range fills a top-k of its own from empty, and the
     # merge reads them all.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    bq, bn = l2_topk_tiles()
+    bq, bn = l2_topk_tiles(k)
     qblocks = -(-b // bq)
     tiles = -(-n // bn)
     nsplit = max(1, min(tiles, sms // qblocks))
@@ -119,16 +121,16 @@ def l2_topk(q: torch.Tensor, x: torch.Tensor, x_sqnorm: torch.Tensor,
     return out_d, out_i
 
 
-def l2_topk_tiles() -> Tuple[int, int]:
-    """(queries, database rows) of one block of l2_topk.cu, as its
-    library reports them."""
+def l2_topk_tiles(k: int) -> Tuple[int, int]:
+    """(queries, database rows) of one block of l2_topk.cu for lists of k
+    entries (its k bucket), as its library reports them."""
     if "l2_topk_tiles" not in _FNS:
         f = _build.load("l2_topk").l2_topk_tiles
-        f.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        f.argtypes = [_I] + [ctypes.POINTER(ctypes.c_int)] * 2
         f.restype = None
         _FNS["l2_topk_tiles"] = f
     bq, bn = ctypes.c_int(), ctypes.c_int()
-    _FNS["l2_topk_tiles"](ctypes.byref(bq), ctypes.byref(bn))
+    _FNS["l2_topk_tiles"](k, ctypes.byref(bq), ctypes.byref(bn))
     return bq.value, bn.value
 
 

@@ -1,11 +1,13 @@
-"""repro_torch.serve — the slot-pool server and its difficulty tiers (a port
-of ``repro.serve``; the cold tier, ``ColdTier``, is ROADMAP Queue 1 item 7)."""
-from repro_torch.serve import difficulty, engine
+"""repro_torch.serve — the slot-pool server, its difficulty tiers and the
+IVF cold bucket tier (a port of ``repro.serve``)."""
+from repro_torch.serve import cold, difficulty, engine
+from repro_torch.serve.cold import ColdTier, make_cold_tier
 from repro_torch.serve.difficulty import (TierConfig, TierStats,
                                           assign_tiers, difficulty_scores)
 from repro_torch.serve.engine import DarthServer, HostStats, ServeStats
 
 __all__ = [
-    "engine", "difficulty", "DarthServer", "HostStats", "ServeStats",
+    "engine", "difficulty", "cold", "DarthServer", "HostStats",
+    "ServeStats", "ColdTier", "make_cold_tier",
     "TierConfig", "TierStats", "assign_tiers", "difficulty_scores",
 ]

@@ -108,6 +108,48 @@ def test_l2_topk_kernel_integer_data_exact(dev, dt, case):
     assert i.is_cuda and int(i[0, 0]) == 17
 
 
+# The k buckets of l2_topk.cu: 64 (the last k of the 128-query block) and
+# 128 (64-query blocks), with k = 65 and 128 at their edges and k = 100,
+# the evaluation's wide ground truth. (queries, rows, width) run ragged
+# against both block shapes, over several grid.y ranges.
+L2_WIDE_K = [64, 65, 100, 128]
+L2_WIDE_SHAPES = [(300, 20_000, 128), (65, 3000, 24), (1000, 100_000, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "int8"])
+@pytest.mark.parametrize("k", L2_WIDE_K)
+@pytest.mark.parametrize("b,n,d", L2_WIDE_SHAPES)
+def test_l2_topk_wide_k_matches_plain(dev, dt, k, b, n, d):
+    q, x, xsq = (t.to(dev) for t in l2_float_inputs(dt, b, n, d, k))
+    d_k, i_k = cuda.l2_topk(q, x, xsq, k)
+    torch.cuda.synchronize()
+    d_r, i_r = ref.l2_topk_ref(q, x, xsq, k)
+    _close_ids(d_k, i_k, d_r, i_r, atol=1e-3 + 1e-5 * float(
+        xsq[torch.isfinite(xsq)].max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(L2_INT_CASES))
+@pytest.mark.parametrize("dt", ["f32", "int8"])
+def test_l2_topk_wide_k_integer_data_exact(dev, dt, case):
+    """Both k buckets on integer data: bit-equal to the plain version,
+    the lowest row first on a tie; flat.search at k = 100 goes through
+    the kernel."""
+    from repro_torch.index import flat
+    q, x = (t.to(dev) for t in l2_integer_inputs(dt, case))
+    xsq = (x.float() ** 2).sum(1)
+    for k in L2_WIDE_K:
+        got = cuda.l2_topk(q, x, xsq, k)
+        want = ref.l2_topk_ref(q, x, xsq, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if dt == "f32":
+        before = cuda.LAUNCHES["l2_topk"]
+        d, i = flat.search(q, x, 100)
+        assert cuda.LAUNCHES["l2_topk"] == before + 1
+        assert i.shape == (q.shape[0], 100) and int(i[0, 0]) == 17
+
+
 def _probe_inputs(rng, b, c, d, k, dev, ties=False):
     q = rng.integers(-8, 9, (b, d)).astype(np.float32)
     vecs = rng.integers(-8, 9, (b, c, d)).astype(np.float32)
@@ -257,12 +299,75 @@ def test_gbdt_kernel_matches_plain(dev, t, depth, b, f, tree_smem, x_smem,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dt", ["f32", "int8"])
+def test_bucket_probe_over_a_split_store(dev, dt):
+    """The cold tier's probe: a store of S resident buckets, each query
+    reading slot hot_map[bucket] where it is resident and active, keeping
+    its list and counting 0 where its bucket is cold (as probe_step
+    passes ``active & hot``)."""
+    rng = np.random.default_rng(9)
+    nlist, s, c, d, k, b = 48, 12, 600, 128, 10, 256
+    q, vecs, sqn, ids, bias, kth, run_d, run_i = _probe_inputs(
+        rng, s, c, d, k, dev, ties=True)
+    vecs = vecs.to(TDT[dt])
+    hot = rng.choice(nlist, s, replace=False)
+    hot_map = torch.full((nlist,), -1, dtype=torch.int32, device=dev)
+    hot_map[torch.as_tensor(hot, device=dev)] = torch.arange(
+        s, dtype=torch.int32, device=dev)
+    bucket = torch.as_tensor(rng.integers(0, nlist, b), device=dev)
+    slot = hot_map[bucket]
+    resident = slot >= 0
+    slot = slot.clamp_min(0).contiguous()
+    active = torch.as_tensor(rng.random(b) < 0.8, device=dev) & resident
+    assert resident.any() and (~resident).any()
+    row = torch.as_tensor(rng.integers(0, s, b), device=dev)
+    args = (q[row].contiguous(), vecs, sqn, ids, slot, active,
+            bias[row].contiguous(), kth[row].contiguous(),
+            run_d[row].contiguous(), run_i[row].contiguous())
+    got = cuda.bucket_probe_slots(*args)
+    want = ref.bucket_probe_slots_ref(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[1][~active], args[9][~active])
+    assert not got[2][~active].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,depth", [(1, 8), (40, 6)])
+@pytest.mark.parametrize("b", [512, 1000, 20_000])
+def test_gbdt_kernel_baseline_ensembles(dev, t, depth, b):
+    """The model-selection baselines' shapes: a decision tree of depth 8
+    and a 40-tree random forest of depth 6, at LAET's and the hold-out's
+    row counts."""
+    rng = np.random.default_rng(t + depth)
+    feat = rng.integers(-1, 11, (t, 2 ** depth - 1)).astype(np.int32)
+    thresh = rng.normal(size=(t, 2 ** depth - 1)).astype(np.float32)
+    leaf = (rng.normal(size=(t, 2 ** depth)) / t).astype(np.float32)
+    feat, thresh, leaf = (torch.as_tensor(a, device=dev)
+                          for a in (feat, thresh, leaf))
+    x = torch.as_tensor(rng.normal(size=(b, 11)), dtype=torch.float32,
+                        device=dev)
+    got = cuda.gbdt_predict(x, feat, thresh, leaf)
+    want = ref.gbdt_predict_ref(x, feat, thresh, leaf)
+    assert torch.allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros((4, 8), device=dev)
     x = torch.zeros((16, 8), device=dev)
     xsq = torch.zeros(16, device=dev)
     with pytest.raises(ValueError, match="range"):
-        cuda.l2_topk(q, x, xsq, 65)
+        cuda.l2_topk(q, x, xsq, cuda.L2_MAX_K + 1)
+    with pytest.raises(ValueError, match="range"):
+        cuda.bucket_probe(q, x[None].expand(4, 16, 8).contiguous(),
+                          xsq[None].expand(4, 16).contiguous(),
+                          torch.zeros((4, 16), dtype=torch.int32, device=dev),
+                          xsq[:4, None].contiguous(),
+                          xsq[:4, None].contiguous(),
+                          torch.zeros((4, 65), device=dev),
+                          torch.zeros((4, 65), dtype=torch.int32, device=dev))
     with pytest.raises(TypeError):
         cuda.l2_topk(q.double(), x, xsq, 4)
     with pytest.raises(ValueError, match="contiguous"):

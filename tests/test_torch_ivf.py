@@ -129,15 +129,3 @@ def test_port_build_recall_matches_reference_build():
     port8 = ivf.build(ds.base, nlist=nlist, seed=0, quantize=True,
                       device="cpu")
     assert port8.quantized
-
-
-def test_hot_map_raises():
-    x, q, ref, port = _carried_index(False)
-    arrays = convert.fields_as_numpy(ref)
-    arrays["hot_map"] = np.arange(ref.nlist, dtype=np.int32)
-    cold = convert.ivf_index_from_numpy(arrays, "cpu")
-    with pytest.raises(NotImplementedError, match="hot_map"):
-        ivf.init_state(cold, torch.as_tensor(q), k=5, nprobe=4)
-    s = ivf.init_state(port, torch.as_tensor(q), k=5, nprobe=4)
-    with pytest.raises(NotImplementedError, match="hot_map"):
-        ivf.probe_step(cold, s)
