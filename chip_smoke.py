@@ -15,7 +15,11 @@ Phases, each fatal on failure:
               must have run. Each mean recall@10 (against exact ground truth)
               must reach its target - 0.03. Then one fit batch's step log
               is timed, and run again under torch.profiler for the
-              device's busy time by kernel (its idle share).
+              device's busy time by kernel (its idle share). [repeat]:
+              ``ivf.build`` a second time and the GBDT fit
+              (``training.fit_predictor``) a second time on phase 2's own
+              step log; centroids, store and trees must be bit-equal to
+              the first (both times printed).
 3. kernels:   each kernel against its plain PyTorch version on the main
               path's own tensors and shapes (f32, and int8 codes for both
               distance kernels), with times of the kernel, the plain version
@@ -123,6 +127,31 @@ Phases, each fatal on failure:
               Fatal: every query completes and the tier's counters equal
               the ``darth_cold_*`` metrics. A ``[cold] FLAG`` line (not
               fatal) says when plan + prefetch recalls less than static.
+              With ``--cold-repeat`` phase 8 runs twice and prints whether
+              its serves repeat (not fatal).
+9. sharded:   the sharded IVF path on phase 2's index and Darth at 1, 2,
+              4 and 7 shards, all on cuda:0 (7 divides neither the cap
+              nor N, so both pad): ``dist.place_index`` (seconds, bytes
+              per shard, each placement freed before the next), the
+              sharded flat search at the fit shape (learn x N), equal to
+              ``flat.search`` in ids and distances; ``ivf.search_sharded``
+              on the test queries, equal to ``ivf.search`` in ids,
+              distances, ndis, ninserts and probe_pos; ``Darth.search``
+              through ``sharded_ivf_engine`` with phase 2's predictor at
+              each target, every decision equal to phase 2's; at 4 shards
+              the DarthServer over the mesh as phase 5 serves, equal per
+              query to phase 5's hosts-1 IVF f32 run; at 2 shards
+              ``Darth.fit(mesh=)`` on 512 learn queries, its step log and
+              trees equal to an unsharded fit's (its ground-truth seconds
+              beside phase 2's). The counts are zeroed after the
+              single-device references and read after the last check;
+              each kernel must have run. Then l2_topk and bucket_probe on
+              shard 0's slice at 2, 4 and 7 shards, against their plain
+              versions and timed beside their bounds.
+10. quickstart: ``repro_torch.examples.quickstart.main()`` at its own
+              size (30,000 x 32, nlist 128), which prints its table; each
+              target's recall must reach target - 0.03 and every kernel
+              must have run.
 
 Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -144,7 +173,7 @@ empty kernel's time (``launch_floor_ms`` by events, and
 It imports nothing of JAX or of the ``repro`` package. Output: JSON lines
 of each path's results and of per-kernel results (``launches`` summed
 over the paths, ``launches_by_path`` split: ivf, hnsw, serve, mutate,
-competitors, cold), each phase's wall time, the card's name and power
+competitors, cold, sharded, quickstart), each phase's wall time, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Full
 results also go to ``results/chip_smoke.json``. Without a CUDA card, or
 without the repository around it, it exits non-zero and prints no result.
@@ -198,6 +227,11 @@ METHODS = ("darth", "baseline", "rem", "laet")
 # lookahead 4 (src/repro/serve/cold.py defaults), plan over the first 4
 # probes.
 COLD_SLOTS, COLD_LOOKAHEAD, COLD_STAGING, COLD_FIRST = 256, 4, 8, 4
+# The sharded path: shard counts, all on cuda:0 (7 divides neither the
+# cap of 5832 = 2^3 * 3^6 nor N, so both pad); the learn queries of the
+# Darth.fit(mesh=) check (a whole fit's step log would repeat phase 2's).
+SHARD_COUNTS = (1, 2, 4, 7)
+SHARD_FIT_LEARN = 512
 MUTATE_CUTS = (
     "the IVF refit uses the first 2,560 learn queries, not 10,000 (the "
     "full refit would repeat phase 2's ~53 s step log)",
@@ -1483,8 +1517,11 @@ def cold_path(ds, index, darth, gt, served, r_targets, tol, card):
     nq = ds.queries.shape[0]
     q = torch.as_tensor(ds.queries, device=dev)
     nlist = index.nlist
+    # a quarter of the buckets resident: COLD_SLOTS of 1024 at full size,
+    # fewer on a smaller index (all resident would leave no drifted slice)
+    hot = min(COLD_SLOTS, nlist // 4)
     pred, iv = darth.trained.predictor, darth.interval_for_target
-    out = {"card": card, "hot_slots": COLD_SLOTS, "lookahead": COLD_LOOKAHEAD,
+    out = {"card": card, "hot_slots": hot, "lookahead": COLD_LOOKAHEAD,
            "staging": COLD_STAGING, "serves": {}}
     failures = []
 
@@ -1525,7 +1562,7 @@ def cold_path(ds, index, darth, gt, served, r_targets, tol, card):
     del tier, store, res, tracer
 
     # 2. skip honesty on the 256 most populated buckets
-    tier = cold.make_cold_tier(index, hot_slots=COLD_SLOTS)
+    tier = cold.make_cold_tier(index, hot_slots=hot)
     inner = darth_search.plain_search(
         engines.ivf_engine(tier.store, k=10, nprobe=nlist), q)
     sizes = index.bucket_sizes.cpu().numpy()
@@ -1538,7 +1575,7 @@ def cold_path(ds, index, darth, gt, served, r_targets, tol, card):
             "ndis_equal_resident": bool((inner.ndis == resident).all()),
             "max_abs_err": err, "id_agreement": agree, "tol": tol}
     out["skip_honesty"] = skip
-    print(f"[cold] skip honesty ({COLD_SLOTS} slots, nprobe {nlist}) "
+    print(f"[cold] skip honesty ({hot} slots, nprobe {nlist}) "
           f"{skip}", flush=True)
     if not ok or not skip["ndis_equal_resident"]:
         failures.append(f"cold: skip honesty failed: {skip}")
@@ -1547,7 +1584,7 @@ def cold_path(ds, index, darth, gt, served, r_targets, tol, card):
     # 3. 256 resident buckets, three modes, two query sets
     order, _ = ivf.rank_centroids(index.centroids, q,
                                   (q * q).sum(1, keepdim=True), 1)
-    top = set(np.argsort(-sizes, kind="stable")[:COLD_SLOTS].tolist())
+    top = set(np.argsort(-sizes, kind="stable")[:hot].tolist())
     drifted = np.asarray([i for i, b in enumerate(order[:, 0].tolist())
                           if b not in top], np.int64)
     out["drifted_queries"] = int(drifted.size)
@@ -1560,7 +1597,7 @@ def cold_path(ds, index, darth, gt, served, r_targets, tol, card):
         for mode in ("static", "plan", "plan_prefetch"):
             reg = MetricsRegistry()
             t0 = time.time()
-            tier = cold.make_cold_tier(index, hot_slots=COLD_SLOTS,
+            tier = cold.make_cold_tier(index, hot_slots=hot,
                                        lookahead=COLD_LOOKAHEAD,
                                        staging=COLD_STAGING, metrics=reg)
             store = (tier.store if mode == "static" else
@@ -1629,7 +1666,7 @@ def cold_path(ds, index, darth, gt, served, r_targets, tol, card):
     args = (st.q, tier.store.bucket_vecs, tier.store.bucket_sqnorm,
             tier.store.bucket_ids, slot, act, st.qsq,
             st.topk_d[:, -1:].contiguous(), st.topk_d, st.topk_i)
-    row, ok = shape_row_probe(f"cold serve chunk step, {COLD_SLOTS}-slot "
+    row, ok = shape_row_probe(f"cold serve chunk step, {hot}-slot "
                               f"store", tier.store, args, tol,
                               launches["bucket_probe"])
     print(f"[cold] bucket_probe {row}", flush=True)
@@ -1639,6 +1676,250 @@ def cold_path(ds, index, darth, gt, served, r_targets, tol, card):
     return out, launches, failures, {"bucket_probe": [row]}
 
 
+def sharded_path(ds, index, darth, results, served, r_targets, gt, tol,
+                 card):
+    """Phase 9: the sharded IVF path on phase 2's index and Darth, for
+    each shard count in SHARD_COUNTS with every shard on cuda:0 (the
+    one-controller mesh): place_index (seconds, resident bytes per
+    shard); the sharded flat search at the fit shape (the learn queries
+    x the collection), ids and distances equal to flat.search's;
+    ivf.search_sharded on the test queries, ids and counters equal to
+    ivf.search's; Darth.search through sharded_ivf_engine with phase 2's
+    predictor at each target, every decision equal to phase 2's. At 4
+    shards the DarthServer over the mesh, equal per query to phase 5's
+    hosts-1 IVF f32 run; at 2 shards Darth.fit(mesh=) on SHARD_FIT_LEARN
+    learn queries, its step log and trees equal to an unsharded fit's.
+    Each placement is freed before the next. The counts are zeroed after
+    the single-device references and read after the last check; then
+    l2_topk and bucket_probe are held against their plain versions on
+    shard 0's slice at each shard count above 1. Returns (results,
+    launches by kernel on this path, failures, {kernel: [shape rows]})."""
+    import types
+
+    import numpy as np
+    import torch
+    from repro_torch import dist
+    from repro_torch.core import api, engines
+    from repro_torch.core.padding import PAD_SQNORM, pad_dists, pad_ids
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.index import flat, ivf
+    from repro_torch.kernels import cuda, ref
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve import DarthServer
+    dev = index.device
+    nq, nlist = ds.queries.shape[0], index.nlist
+    q = torch.as_tensor(ds.queries, device=dev)
+    ql = torch.as_tensor(ds.learn, device=dev)
+    xb = torch.as_tensor(ds.base, device=dev)
+    out = {"card": card, "device": str(dev), "shards": {},
+           "phase2_ground_truth_s": darth.fit_seconds["ground_truth"]}
+    failures = []
+    t_start = time.time()
+    # single-device references, outside the counted run
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref_fd, ref_fi = flat.search(ql, xb, 10)
+    torch.cuda.synchronize()
+    out["flat_search_s"] = time.time() - t0
+    _, _, single = ivf.search(index, q, k=10, nprobe=nlist)
+    sub = ds.learn[:SHARD_FIT_LEARN]
+    d_plain = api.Darth(make_engine=None, engine=darth.engine)
+    d_plain.fit(sub, ds.base)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    t_drive = time.time()
+    for nshards in SHARD_COUNTS:
+        before = dict(cuda.LAUNCHES)
+        mesh = mesh_lib.make_search_mesh(nshards, dev)
+        row = {"mesh": mesh_lib.describe(mesh)}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        placed = dist.place_index(index, mesh)
+        torch.cuda.synchronize()
+        row["place_s"] = time.time() - t0
+        row["cap"] = placed.cap
+        row["shard_bytes"] = [
+            sum(t[j].numel() * t[j].element_size()
+                for t in (placed.bucket_vecs, placed.bucket_ids,
+                          placed.bucket_sqnorm)) for j in range(nshards)]
+        t0 = time.time()
+        fd, fi = collectives.sharded_flat_search(ql, xb, 10, mesh)
+        torch.cuda.synchronize()
+        row["flat"] = {"s": time.time() - t0,
+                       "ids_differ": int((fi != ref_fi).any(1).sum()),
+                       "dists_equal": torch.equal(fd, ref_fd)}
+        del fd, fi
+        t0 = time.time()
+        _, _, st = ivf.search_sharded(placed, q, k=10, nprobe=nlist,
+                                      mesh=mesh)
+        torch.cuda.synchronize()
+        row["search_sharded"] = {"s": time.time() - t0, "differ": int((
+            (st.topk_i != single.topk_i).any(1)
+            | (st.topk_d != single.topk_d).any(1)
+            | (st.ndis != single.ndis) | (st.ninserts != single.ninserts)
+            | (st.probe_pos != single.probe_pos)).sum())}
+        sd = api.Darth(make_engine=None, trained=darth.trained,
+                       engine=engines.sharded_ivf_engine(
+                           placed, mesh, k=10, nprobe=nlist))
+        row["darth"] = {}
+        for rt in TARGETS:
+            ids, st, secs = timed_search(sd, q, rt)
+            r = darth_row(ids, st, secs, gt, nq)
+            r["differ_from_phase2"] = same_decisions((ids, st),
+                                                     results[rt][:2])
+            row["darth"][str(rt)] = r
+        if nshards == 4:
+            srv = DarthServer(sd.engine, darth.trained.predictor,
+                              darth.interval_for_target,
+                              num_slots=SERVE_SLOTS,
+                              steps_per_sync=SERVE_SPS, mesh=mesh)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res, stats = srv.serve(ds.queries, r_targets)
+            torch.cuda.synchronize()
+            row["serve"] = serve_row(res, stats, time.time() - t0)
+            row["serve"]["recall"] = serve_recall(res, gt, r_targets)
+            row["serve"]["differ_from_phase5"] = same_results(served, res)
+            del srv, res
+        if nshards == 2:
+            fitted = api.Darth(make_engine=None, engine=sd.engine)
+            t0 = time.time()
+            fitted.fit(sub, ds.base, mesh=mesh)
+            pa, pb = fitted.trained.predictor.params, \
+                d_plain.trained.predictor.params
+            row["fit"] = {
+                "learn": SHARD_FIT_LEARN, "s": time.time() - t0,
+                "split_s": fitted.fit_seconds,
+                "unsharded_split_s": d_plain.fit_seconds,
+                "log_equal": all(np.array_equal(
+                    getattr(fitted._last_log, f),
+                    getattr(d_plain._last_log, f))
+                    for f in ("features", "recall", "ndis", "valid")),
+                "trees_equal": all(torch.equal(getattr(pa, f),
+                                               getattr(pb, f))
+                                   for f in ("feat", "thresh", "leaf",
+                                             "base"))}
+            del fitted, pa, pb
+        row["launches"] = {k: cuda.LAUNCHES[k] - before[k]
+                           for k in cuda.LAUNCHES}
+        del placed, sd, st, ids
+        torch.cuda.empty_cache()
+        out["shards"][str(nshards)] = row
+        print(f"[shard] {nshards} shards {row}", flush=True)
+        bad = []
+        if row["flat"]["ids_differ"] or not row["flat"]["dists_equal"]:
+            bad.append(f"flat search {row['flat']}")
+        if row["search_sharded"]["differ"]:
+            bad.append(f"search_sharded {row['search_sharded']}")
+        for rt, r in row["darth"].items():
+            if r["differ_from_phase2"]:
+                bad.append(f"Darth.search at {rt}: "
+                           f"{r['differ_from_phase2']} queries")
+        if "serve" in row and (row["serve"]["differ_from_phase5"]
+                               or row["serve"]["completed"] != nq):
+            bad.append(f"served {row['serve']}")
+        if "fit" in row and not (row["fit"]["log_equal"]
+                                 and row["fit"]["trees_equal"]):
+            bad.append(f"Darth.fit(mesh=) {row['fit']}")
+        if bad:
+            failures.append(f"sharded path, {nshards} shards, differs from "
+                            f"the single-device path: " + "; ".join(bad))
+    launches = dict(cuda.LAUNCHES)
+    out["drive_s"] = time.time() - t_drive
+    out["launches"] = launches
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"[shard] launches_by_path['sharded'] {launches} peak bytes "
+          f"{out['peak_bytes']}", flush=True)
+    for name in launches:
+        if launches[name] < 1:
+            failures.append(f"kernel {name} was not launched on the sharded "
+                            f"path")
+    if failures:
+        return out, launches, failures, {}
+
+    # Each kernel at the new shapes, against its plain version: l2_topk on
+    # shard 0's rows at the fit shape (1024 learn queries, as phase 3),
+    # bucket_probe on shard 0's store at the rank-1 fit shape (256 learn
+    # queries on their second bucket, an empty running list and the
+    # incoming k-th, as the sharded step passes them).
+    shapes = {"l2_topk": [], "bucket_probe": []}
+    qg = ql[:1024]
+    xsq = (xb ** 2).sum(1)
+    s0 = ivf.init_state(index, ql[:256], k=10, nprobe=nlist)
+    s1 = ivf.probe_step(index, s0)
+    slot = s1.probe_order[:, 1].contiguous()
+    act = torch.ones_like(s1.active)
+    kth = s1.topk_d[:, -1:].contiguous()
+    for nshards in SHARD_COUNTS[1:]:
+        mesh = mesh_lib.make_search_mesh(nshards, dev)
+        row_launch = out["shards"][str(nshards)]["launches"]
+        xs = sharding.database_shards(xb, mesh)
+        sqs = sharding.database_shards(xsq, mesh, PAD_SQNORM)
+        case = f"sharded fit ground truth, shard 0 of {nshards}"
+        d_k, i_k = cuda.l2_topk(qg, xs[0], sqs[0], 10)
+        d_r, i_r = ref.l2_topk_ref(qg, xs[0], sqs[0], 10)
+        ltol = 1e-3 + 1e-5 * float(xsq.max())
+        err, agree, ok = topk_agreement(d_k, i_k, d_r, i_r, ltol)
+        row = shape_row_l2(case, qg, xs[0], sqs[0], 10,
+                           row_launch["l2_topk"], 5)
+        row.update(max_abs_err=err, id_agreement=agree, tol=ltol)
+        shapes["l2_topk"].append(row)
+        print(f"[shard] l2_topk {row}", flush=True)
+        if not ok:
+            failures.append(f"l2_topk disagrees with plain at {case}")
+        del xs, sqs, d_k, i_k, d_r, i_r
+        placed = dist.place_index(index, mesh)
+        store = types.SimpleNamespace(
+            cap=placed.bucket_vecs[0].shape[1],
+            bucket_vecs=placed.bucket_vecs[0],
+            bucket_ids=placed.bucket_ids[0])
+        pargs = (s1.q, placed.bucket_vecs[0], placed.bucket_sqnorm[0],
+                 placed.bucket_ids[0], slot, act, s1.qsq, kth,
+                 pad_dists((256, 10), dev), pad_ids((256, 10), dev))
+        case = f"sharded rank-1 fit shape, shard 0 of {nshards}"
+        row, ok = shape_row_probe(case, store, pargs, tol,
+                                  row_launch["bucket_probe"])
+        row["shape"] = (f"B=256 store[{nlist},{store.cap},"
+                        f"{index.dim}] f32 k=10")
+        shapes["bucket_probe"].append(row)
+        print(f"[shard] bucket_probe {row}", flush=True)
+        if not ok:
+            failures.append(f"bucket_probe disagrees with plain at {case}")
+        del placed, store, pargs
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t_start
+    return out, launches, failures, shapes
+
+
+def quickstart_path(card):
+    """Phase 10: ``repro_torch.examples.quickstart.main()`` at its own size
+    (30,000 x 32, nlist 128, 2,000 learn and 256 test queries, targets
+    0.80-0.99), which prints its table. Every target's recall must reach
+    target - TOL and every kernel must run. Returns (results, launches by
+    kernel, failures)."""
+    import torch
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import cuda
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.time()
+    res = quickstart.main()
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    out = {"card": card, "wall_s": time.time() - t0, "launches": launches,
+           "plain": res["plain"],
+           "targets": {str(t): r for t, r in res["targets"].items()}}
+    print(f"[quickstart] {out}", flush=True)
+    failures = [f"quickstart: recall {r['recall']:.4f} below target {t} - "
+                f"{TOL}" for t, r in res["targets"].items()
+                if r["recall"] < t - TOL]
+    failures += [f"kernel {name} was not launched by the quickstart"
+                 for name, n in launches.items() if n < 1]
+    return out, launches, failures
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1646,6 +1927,9 @@ def main() -> int:
     ap.add_argument("--learn", type=int, default=10_000)
     ap.add_argument("--queries", type=int, default=1_000)
     ap.add_argument("--nlist", type=int, default=1024)
+    ap.add_argument("--cold-repeat", action="store_true",
+                    help="run phase 8 a second time and print whether its "
+                         "serves repeat (not fatal)")
     args = ap.parse_args()
 
     try:
@@ -1656,7 +1940,7 @@ def main() -> int:
         return fail("no CUDA device")
     sys.path.insert(0, os.path.join(HERE, "src"))
     try:
-        from repro_torch.core import api, darth_search, engines
+        from repro_torch.core import api, darth_search, engines, training
         from repro_torch.data import vectors
         from repro_torch.index import flat, ivf
         from repro_torch.kernels import _build, cuda, ref
@@ -1787,6 +2071,36 @@ def main() -> int:
                                   if "probe" in key) / 1e3
     main["step_log_batch"] = trace
     print(f"[trace] one fit batch's step log: {trace}", flush=True)
+
+    # [repeat] The card's build and fit repeat bit for bit: ivf.build a
+    # second time, and the GBDT fit a second time on phase 2's own log.
+    t_rep = time.time()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    index2 = ivf.build(ds.base, nlist=args.nlist, seed=0)
+    torch.cuda.synchronize()
+    build2_s = time.time() - t0
+    t0 = time.time()
+    trained2 = training.fit_predictor(darth._last_log, device=dev)
+    torch.cuda.synchronize()
+    gbdt2_s = time.time() - t0
+    p1, p2 = trained.predictor.params, trained2.predictor.params
+    repeat = {
+        "build_s": [main["build_s"], build2_s],
+        "gbdt_s": [main["fit_split_s"]["gbdt"], gbdt2_s],
+        "centroids_equal": torch.equal(index.centroids, index2.centroids),
+        "store_equal": all(torch.equal(getattr(index, f), getattr(index2, f))
+                           for f in ("bucket_vecs", "bucket_ids",
+                                     "bucket_sqnorm", "bucket_sizes")),
+        "trees_equal": all(torch.equal(getattr(p1, f), getattr(p2, f))
+                           for f in ("feat", "thresh", "leaf", "base")),
+        "dists_rt_equal": trained.dists_rt == trained2.dists_rt}
+    del index2, trained2, p2
+    repeat["wall_s"] = time.time() - t_rep
+    main["repeat"] = repeat
+    print(f"[repeat] {repeat}", flush=True)
+    if not all(v for k, v in repeat.items() if k.endswith("_equal")):
+        return fail(f"the card's build or fit did not repeat: {repeat}")
 
     phase_done("2 main path")
     # -- 3. kernels against their plain versions --------------------------------
@@ -2126,13 +2440,43 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     print(f"[cold] phase 8 took {cold_out['wall_s']:.1f}s", flush=True)
+    if args.cold_repeat:
+        again, _, failures, _ = cold_path(ds, index, darth, gt, served,
+                                          serve_targets, btol, card)
+        if failures:
+            return fail("; ".join(failures))
+        keys = ("recall_mean", "ndis_mean", "prefetches", "evictions",
+                "misses", "engine_steps")
+        cold_out["repeat"] = {
+            name: {key: [row[key], again["serves"][name][key]]
+                   for key in keys}
+            for name, row in cold_out["serves"].items()}
+        cold_out["repeat_equal"] = all(
+            a == b for row in cold_out["repeat"].values()
+            for a, b in row.values())
+        print(f"[cold] repeat in this call: equal "
+              f"{cold_out['repeat_equal']} {cold_out['repeat']}", flush=True)
+    served_h1 = served["ivf_f32_hosts1"][0]
     del served
     phase_done("8 cold")
+    # -- 9. sharded path ----------------------------------------------------
+    shard_out, shard_launches, failures, shard_shapes = sharded_path(
+        ds, index, darth, results, served_h1, serve_targets, gt, btol, card)
+    if failures:
+        return fail("; ".join(failures))
+    print(f"[shard] phase 9 took {shard_out['wall_s']:.1f}s", flush=True)
+    del served_h1
+    phase_done("9 sharded")
+    # -- 10. quickstart -----------------------------------------------------
+    quick_out, quick_launches, failures = quickstart_path(card)
+    if failures:
+        return fail("; ".join(failures))
+    phase_done("10 quickstart")
     print(f"[main] phase wall s {walls}", flush=True)
 
     extra_shapes = {name: [] for name in _build.KERNELS}
     for shapes in (serve_out["kernel_shapes"], {"l2_topk": delta_rows},
-                   compete_shapes, cold_shapes):
+                   compete_shapes, cold_shapes, shard_shapes):
         for name, rows in shapes.items():
             extra_shapes[name] += rows
     for row in kernels:
@@ -2145,7 +2489,9 @@ def main() -> int:
                    "serve": serve_launches[row["name"]],
                    "mutate": mutate_launches[row["name"]],
                    "competitors": compete_launches[row["name"]],
-                   "cold": cold_launches[row["name"]]}
+                   "cold": cold_launches[row["name"]],
+                   "sharded": shard_launches[row["name"]],
+                   "quickstart": quick_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
@@ -2155,11 +2501,14 @@ def main() -> int:
            "main_path": main, "hnsw_path": hnsw_out,
            "serve_path": serve_out, "mutate_path": mutate_out,
            "competitors_path": compete_out, "cold_path": cold_out,
+           "sharded_path": shard_out, "quickstart_path": quick_out,
            "kernels": kernels, "launches": launches,
            "hnsw_launches": hnsw_launches, "serve_launches": serve_launches,
            "mutate_launches": mutate_launches,
            "competitors_launches": compete_launches,
-           "cold_launches": cold_launches}
+           "cold_launches": cold_launches,
+           "sharded_launches": shard_launches,
+           "quickstart_launches": quick_launches}
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
     with open(os.path.join(HERE, "results", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1, default=float)
@@ -2169,6 +2518,8 @@ def main() -> int:
     print(json.dumps({"mutate_path": mutate_out}, default=float))
     print(json.dumps({"competitors_path": compete_out}, default=float))
     print(json.dumps({"cold_path": cold_out}, default=float))
+    print(json.dumps({"sharded_path": shard_out}, default=float))
+    print(json.dumps({"quickstart_path": quick_out}, default=float))
     print(json.dumps({"kernels": kernels}, default=float))
     print(f"[main] chip_smoke.py took {time.time() - T_START:.1f}s",
           flush=True)

@@ -73,15 +73,19 @@ class Darth:
     def fit(self, q_train, x, *,
             targets: Sequence[float] = (0.8, 0.85, 0.9, 0.95, 0.99),
             max_samples: int = 2_000_000, batch: int = 256,
-            seed: int = 0, ids=None) -> training_lib.TrainedDarth:
+            seed: int = 0, mesh=None,
+            ids=None) -> training_lib.TrainedDarth:
         """One-time fit: exact ground truth, the step log, the GBDT. With
-        ``ids``, x's rows are mapped to GLOBAL ids (ids[row]) before
-        recall is measured — the mutable-index refit path, where the
-        engine returns stable global ids rather than row positions."""
+        ``mesh``, the ground truth row-shards the database over the mesh
+        (``training.ground_truth``). With ``ids``, x's rows are mapped to
+        GLOBAL ids (ids[row]) before recall is measured — the
+        mutable-index refit path, where the engine returns stable global
+        ids rather than row positions."""
         k = self.engine.k
         q_train = self._on_device(q_train)
         t0 = time.time()
-        _, gt_i = training_lib.ground_truth(q_train, self._on_device(x), k)
+        _, gt_i = training_lib.ground_truth(q_train, self._on_device(x), k,
+                                            mesh=mesh)
         if ids is not None:
             id_map = self._on_device(ids).to(torch.int32)
             gt_i = torch.where(gt_i >= 0, id_map[gt_i.clamp_min(0).long()],

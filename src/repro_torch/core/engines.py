@@ -52,6 +52,29 @@ def ivf_engine(index: ivf_lib.IVFIndex, *, k: int, nprobe: int) -> Engine:
     )
 
 
+def sharded_ivf_engine(index, mesh, *, k: int, nprobe: int) -> Engine:
+    """The IVF probe loop over a cap-sharded bucket store
+    (``dist.place_index`` + ``dist.collectives.make_sharded_probe_step``).
+    Same protocol and the same IVFSearchState as ``ivf_engine``, so
+    darth_search, budget_search and the slot pool drive it unchanged;
+    only the probe step's data movement differs. ``index`` must have been
+    placed with ``dist.place_index(index, mesh)``."""
+    from repro_torch.dist import collectives
+
+    init = collectives.make_sharded_ivf_init(mesh)
+    return Engine(
+        index=index,
+        init=lambda idx, q: init(idx, q, k=k, nprobe=nprobe),
+        step=collectives.make_sharded_probe_step(mesh),
+        topk_d=lambda s: s.topk_d,
+        topk_i=lambda s: s.topk_i,
+        nstep=lambda s: s.probe_pos,
+        max_steps=nprobe,
+        name="ivf-sharded",
+        k=k,
+    )
+
+
 def hnsw_engine(index: hnsw_lib.HNSWIndex, *, k: int, ef: int,
                 max_steps: int = 0, visited_width: int = 0) -> Engine:
     """The beam loop; ``max_steps`` defaults to 8 * ef. ``visited_width``

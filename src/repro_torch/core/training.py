@@ -33,9 +33,16 @@ class TrainLog(NamedTuple):
     gen_seconds: float
 
 
-def ground_truth(q: torch.Tensor, x: torch.Tensor, k: int
+def ground_truth(q: torch.Tensor, x: torch.Tensor, k: int, mesh=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact k-NN ground truth (the fused l2_topk kernel on the card)."""
+    """Exact k-NN ground truth (the fused l2_topk kernel on the card).
+
+    With a mesh, the database rows are sharded over its "model" axis and
+    each shard runs l2_topk on its slice
+    (``dist.collectives.sharded_flat_search``); the result is the same."""
+    if mesh is not None:
+        from repro_torch.dist import collectives
+        return collectives.sharded_flat_search(q, x, k, mesh)
     return flat.search(q, x, k)
 
 

@@ -4,7 +4,7 @@ The recall predictor's trainer, as in ``repro.gbdt.train``:
 
   * quantile binning (host-side numpy, once) -> int32 bin matrix,
   * level-wise tree growth: every level is one scatter-add histogram
-    (``index_add_``) + one vectorized split search over
+    (``reduce.index_sum``) + one vectorized split search over
     [nodes, features, bins],
   * squared loss, shrinkage, L2 leaf regularization, min-child-weight,
   * a Python loop over trees on the tensors' device.
@@ -13,9 +13,12 @@ Also the paper's §4.1.5 comparison models, as the reference has them:
 random forest (the same grower on Poisson(1) bootstrap weights, leaves
 averaged), a single decision tree and ridge linear regression.
 
-``index_add_`` on the card adds in no fixed order, so histogram sums may
-differ from the reference's in the last bits and a near-tie split may go
-the other way; the fit is held to the reference's held-out error, not to
+The histogram and leaf sums go through ``reduce.index_sum``: on the CPU
+that is ``index_add_`` in row order, and the trees equal the reference's;
+on the card the sums are integer fixed point, exact in any order, so a
+fit repeats bit for bit from call to call. They may still differ from
+the CPU's in the last bits, so a near-tie split may go the other way
+there; the card's fit is held to the reference's held-out error, not to
 its trees.
 """
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.gbdt.model import GBDTParams
+from repro_torch.reduce import index_sum
 
 
 class GBDTConfig(NamedTuple):
@@ -83,8 +87,8 @@ def _grow_tree(xb: torch.Tensor, grad: torch.Tensor, w: torch.Tensor,
                + f_range[None, :] * num_bins + xb_l).reshape(-1)
         nseg = n_nodes * f_dim * num_bins
         shape = (n_nodes, f_dim, num_bins)
-        hist_g = torch.zeros(nseg, device=dev).index_add_(0, seg, gw_rep)
-        hist_w = torch.zeros(nseg, device=dev).index_add_(0, seg, w_rep)
+        hist_g = index_sum(seg, gw_rep, nseg)
+        hist_w = index_sum(seg, w_rep, nseg)
 
         gl = torch.cumsum(hist_g.reshape(shape), 2)
         wl = torch.cumsum(hist_w.reshape(shape), 2)
@@ -115,8 +119,8 @@ def _grow_tree(xb: torch.Tensor, grad: torch.Tensor, w: torch.Tensor,
         node_pos = 2 * node_pos + go_right.long()
 
     n_leaf = 2 ** depth
-    leaf_g = torch.zeros(n_leaf, device=dev).index_add_(0, node_pos, gw)
-    leaf_w = torch.zeros(n_leaf, device=dev).index_add_(0, node_pos, w)
+    leaf_g = index_sum(node_pos, gw, n_leaf)
+    leaf_w = index_sum(node_pos, w, n_leaf)
     leaf = -learning_rate * leaf_g / (leaf_w + l2)
     return (torch.cat(feat_nodes), torch.cat(thr_nodes), leaf,
             leaf[node_pos])

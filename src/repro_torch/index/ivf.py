@@ -252,3 +252,17 @@ def search(index: IVFIndex, q: torch.Tensor, *, k: int, nprobe: int
     while bool(s.active.any()):
         s = probe_step(index, s)
     return s.topk_d, s.topk_i, s
+
+
+def search_sharded(index, q: torch.Tensor, *, k: int, nprobe: int, mesh
+                   ) -> Tuple[torch.Tensor, torch.Tensor, IVFSearchState]:
+    """Plain IVF search through the sharded probe step: ``index`` must be
+    placed with ``dist.place_index(index, mesh)`` (cap dim split over the
+    "model" axis). Equal to ``search`` on any shard count."""
+    from repro_torch.dist import collectives   # dist imports this module
+
+    step = collectives.make_sharded_probe_step(mesh)
+    s = collectives.make_sharded_ivf_init(mesh)(index, q, k=k, nprobe=nprobe)
+    while bool(s.active.any()):
+        s = step(index, s)
+    return s.topk_d, s.topk_i, s

@@ -4,13 +4,16 @@ kmeans++-style seeding on a subsample, then Lloyd iterations whose
 assignment is the fused l2_topk kernel with k = 1. Randomness comes from
 a CPU ``torch.Generator`` seeded with ``seed``; it cannot reproduce the
 reference's ``jax.random`` stream, so the two builds agree in quality
-(recall), not in centroids.
+(recall), not in centroids. The Lloyd step's sums go through
+``reduce.index_sum`` (fixed-point on the card), so a build repeats bit
+for bit from call to call on the card as on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.reduce import index_sum
 
 
 def assign(x: torch.Tensor, centroids: torch.Tensor,
@@ -29,7 +32,7 @@ def _lloyd_step(x: torch.Tensor, centroids: torch.Tensor,
                 gen: torch.Generator):
     c = centroids.shape[0]
     a = assign(x, centroids).long()
-    sums = torch.zeros_like(centroids).index_add_(0, a, x)
+    sums = index_sum(a, x, c)
     counts = torch.zeros((c,), dtype=torch.float32,
                          device=x.device).index_add_(
         0, a, torch.ones((x.shape[0],), dtype=torch.float32, device=x.device))

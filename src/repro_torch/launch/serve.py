@@ -37,8 +37,16 @@ the folded base at a drained boundary):
   PYTHONPATH=src python -m repro_torch.launch.serve --mutations 0.2,0.1 \
       --drift 0.3 --online-compact
 
-Still to port: ``--shards`` (the sharded index, ROADMAP Queue 1 item 8);
-it raises.
+Sharded index (--shards N splits every bucket's cap over N shards on
+--device: one shard per card with ``cuda``, all N on one device when it is
+named; the fit's and the report's ground truth row-shard the database
+the same way):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda:0 \
+      --shards 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --shards 2
+--shards serves the IVF engine at --hosts 1 on a frozen index; with
+--engine hnsw (ROADMAP Queue 1 item 3, slice 3.3), --hosts > 1 or
+--mutations (slice 3.4) it raises.
 """
 from __future__ import annotations
 
@@ -49,10 +57,11 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import mutate
+from repro_torch import dist, mutate
 from repro_torch.core import api, engines, training
 from repro_torch.data import vectors
 from repro_torch.index import flat, hnsw, ivf
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.serve import DarthServer
 
 
@@ -73,8 +82,9 @@ def main() -> None:
     ap.add_argument("--slots", type=int, default=64)
     ap.add_argument("--targets", type=str, default="0.8,0.9,0.95")
     ap.add_argument("--shards", type=int, default=None,
-                    help="sharded serving: not ported yet (ROADMAP "
-                         "Queue 1 item 8); raises")
+                    help="shard the IVF index's bucket store over N shards "
+                         "on --device (0 = every visible card with "
+                         "--device cuda)")
     ap.add_argument("--hosts", type=int, default=1,
                     help="split the slot pool into N per-host loops "
                          "(admission/refill run per host)")
@@ -141,10 +151,19 @@ def main() -> None:
                     help="device the index, the fit and the server run "
                          "on (default: the card)")
     args = ap.parse_args()
+    mesh = None
     if args.shards is not None:
-        raise NotImplementedError(
-            "--shards: sharded serving is not ported yet (ROADMAP Queue 1 "
-            "item 8)")
+        if args.engine == "hnsw":
+            raise NotImplementedError(
+                "--shards with --engine hnsw: the sharded beam step is not "
+                "ported yet (ROADMAP Queue 1 item 3, slice 3.3)")
+        if args.hosts > 1 or args.mutations is not None:
+            raise NotImplementedError(
+                "--shards with --hosts > 1 or --mutations: the hosts axis "
+                "and a mutable view under a mesh are not ported yet "
+                "(ROADMAP Queue 1 item 3, slice 3.4)")
+        mesh = mesh_lib.make_search_mesh(args.shards, args.device)
+        print(f"[serve] serving on {mesh_lib.describe(mesh)}")
 
     device = torch.device(args.device)
     targets = [float(t) for t in args.targets.split(",")]
@@ -173,12 +192,16 @@ def main() -> None:
         mutable = mutate.MutableIndex(index, capacity=cap)
         print(f"[serve] mutable index: delta capacity {cap}")
 
+    placed = dist.place_index(index, mesh) if mesh is not None else None
+
     def family_engine(idx, **kw):
         if args.engine == "hnsw":
             return engines.hnsw_engine(idx, **kw)
         return engines.ivf_engine(idx, **kw)
 
     def build_engine(**kw):
+        if placed is not None:
+            return engines.sharded_ivf_engine(placed, mesh, **kw)
         if mutable is None:
             return family_engine(index, **kw)
         return engines.mutable_engine(family_engine(mutable.base, **kw),
@@ -187,7 +210,7 @@ def main() -> None:
     darth = api.Darth(make_engine=build_engine,
                       engine=build_engine(**engine_kw))
     t0 = time.time()
-    darth.fit(ds.learn, ds.base)
+    darth.fit(ds.learn, ds.base, mesh=mesh)
     print(f"[serve] DARTH fit ({time.time()-t0:.1f}s) "
           f"mse={darth.trained.metrics['mse']:.5f}")
 
@@ -223,8 +246,8 @@ def main() -> None:
         registry = MetricsRegistry()
     server = DarthServer(darth.engine, darth.trained.predictor,
                          darth.interval_for_target, num_slots=args.slots,
-                         hosts=args.hosts, tiers=tiers, tracer=tracer,
-                         metrics=registry)
+                         mesh=mesh, hosts=args.hosts, tiers=tiers,
+                         tracer=tracer, metrics=registry)
     monitor = None
     if mutable is not None:
         monitor = mutate.RecalibrationMonitor(
@@ -244,7 +267,8 @@ def main() -> None:
         if "gt" not in frozen_gt:
             frozen_gt["gt"] = training.ground_truth(
                 torch.as_tensor(ds.queries, device=device),
-                torch.as_tensor(ds.base, device=device), args.k)[1]
+                torch.as_tensor(ds.base, device=device), args.k,
+                mesh=mesh)[1]
         return frozen_gt["gt"]
 
     def serve_phase(label: str, on_boundary=None):
@@ -405,6 +429,12 @@ def main() -> None:
               f"delta empty")
         serve_phase("post-compaction")
 
+    if mesh is not None:
+        shards = dist.sharding.shard_count(mesh)
+        print(f"[serve] sharded ground truth: {shards} shards x "
+              f"[{args.queries}, {args.k}] candidates "
+              f"({args.queries * args.k * 8 * shards / 1e3:.1f} kB) merged "
+              f"on {mesh.lead}")
     if tracer is not None:
         from repro_torch.obs import explain as explain_lib
         print(f"[serve] trace: {len(tracer.last_spans)} spans in the "

@@ -314,12 +314,14 @@ class MutableIndex:
         ids, vecs = self._live_tensors()
         return ids.cpu().numpy(), vecs.cpu().numpy()
 
-    def live_ground_truth(self, q: np.ndarray, k: int) -> np.ndarray:
+    def live_ground_truth(self, q: np.ndarray, k: int, *,
+                          mesh=None) -> np.ndarray:
         """Exact top-k over the live base+delta set as GLOBAL ids
         (i32[B, k] numpy, -1 when fewer than k live vectors), scanned
         with l2_topk on the index's device. The one definition of "fresh
         ground truth under mutation" shared by the drift monitor, the
-        launcher and chip_smoke.
+        launcher and chip_smoke. With ``mesh``, the scan row-shards over
+        it (``training.ground_truth``); the ids are the same.
 
         Memoized on the mutation epoch: consecutive calls over an
         unchanged live set reuse one scan; any insert / delete / compact
@@ -337,7 +339,8 @@ class MutableIndex:
 
         live_ids, live_vecs = self._live_tensors()
         _, rows = training_lib.ground_truth(
-            torch.as_tensor(q, device=self.device), live_vecs, k)
+            torch.as_tensor(q, device=self.device), live_vecs, k, mesh=mesh)
+        rows = rows.to(self.device)
         out = torch.where(rows >= 0, live_ids[rows.clamp_min(0).long()],
                           PAD_ID).to(torch.int32).cpu().numpy()
         self._gt_cache[key] = out

@@ -45,7 +45,7 @@ class RecalibrationMonitor:
     def __init__(self, mutable, darth, *,
                  targets: Sequence[float] = (0.8, 0.9, 0.95),
                  threshold: float = 0.02, capacity: int = 2048,
-                 metrics=None):
+                 mesh=None, metrics=None):
         self.mutable = mutable
         self.darth = darth
         # optional obs.MetricsRegistry: drift checks and recalibrations
@@ -54,6 +54,9 @@ class RecalibrationMonitor:
         self.targets = tuple(float(t) for t in targets)
         self.threshold = float(threshold)
         self.capacity = int(capacity)
+        # with a mesh, the drift check's and the refit's ground-truth
+        # scans row-shard over it (the index itself is not placed)
+        self.mesh = mesh
         self.k = darth.engine.k
         dim = mutable.dim
         self._q = np.zeros((self.capacity, dim), np.float32)
@@ -98,7 +101,7 @@ class RecalibrationMonitor:
         q = self._q[:self._n][cur]
         rt = self._rt[:self._n][cur]
         found = self._ids[:self._n][cur]
-        gt = self.mutable.live_ground_truth(q, self.k)
+        gt = self.mutable.live_ground_truth(q, self.k, mesh=self.mesh)
         rec = flat.recall_at_k(torch.as_tensor(found.astype(np.int32)),
                                torch.as_tensor(gt)).numpy()
         achieved, counts = {}, {}
@@ -134,7 +137,8 @@ class RecalibrationMonitor:
         live_ids, live_vecs = self.mutable._live_tensors()
         t1 = time.perf_counter()
         trained = self.darth.fit(np.asarray(learn_q, np.float32), live_vecs,
-                                 ids=live_ids, batch=batch, seed=seed)
+                                 ids=live_ids, batch=batch, seed=seed,
+                                 mesh=self.mesh)
         self.refit_seconds = dict({"live_set": t1 - t0},
                                   **self.darth.fit_seconds)
         self.recalibrations += 1

@@ -30,8 +30,13 @@ boundary. The reference's "compiles at most once" becomes "one shape per
 whole call, free slots are initialised from zero queries and masked,
 and the batch never shrinks to the occupied slots.
 
-Single device only: ``mesh`` must be None (the sharded serve is ROADMAP
-Queue 1 item 8). The server runs on the device of its engine's index.
+Sharded serving: with ``mesh`` (a ``launch.mesh.SearchMesh`` without a
+``"hosts"`` axis) the engine is ``engines.sharded_ivf_engine`` over an
+index placed on that mesh (``dist.place_index``); each probe step scans
+every shard and merges on the mesh's lead device, so the pool, the
+chunk inputs and the harvest stay there. A ``"hosts"`` axis, which
+splits the slot dim over host groups, is ROADMAP Queue 1 item 3, slice
+3.4, and raises. The server runs on the device of its engine's index.
 """
 from __future__ import annotations
 
@@ -620,9 +625,22 @@ class DarthServer:
                  metrics=None, rerank=None):
         from repro_torch.obs import metrics as obs_metrics
         if mesh is not None:
-            raise NotImplementedError(
-                "DarthServer(mesh=...): the sharded slot pool is not ported "
-                "yet (ROADMAP Queue 1 item 8); pass mesh=None")
+            from repro_torch.launch.mesh import SearchMesh
+            if not isinstance(mesh, SearchMesh):
+                raise NotImplementedError(
+                    f"DarthServer(mesh=...) takes a launch.mesh.SearchMesh, "
+                    f"got {type(mesh).__name__}: no other mesh is ported "
+                    f"(sharding, ROADMAP item 8)")
+            if "hosts" in mesh.axis_names:
+                raise NotImplementedError(
+                    "DarthServer(mesh=...) with a 'hosts' axis (the slot dim "
+                    "split over host groups) is not ported yet: ROADMAP "
+                    "Queue 1 item 3, slice 3.4")
+            if getattr(engine.index, "mesh", None) != mesh:
+                raise ValueError(
+                    "DarthServer(mesh=...): the engine's index is not placed "
+                    "on this mesh; serve dist.place_index(index, mesh) "
+                    "through engines.sharded_ivf_engine")
         self.engine = engine
         # Optional exact re-rank hook (index.residency.RerankStore.rerank
         # or compatible (q, ids) -> (d, i) callable), applied to every

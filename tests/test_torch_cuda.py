@@ -590,3 +590,104 @@ def test_empty_delta_wrapper_on_the_card_is_the_base_engine(dev, kind):
     assert torch.equal(wrap.topk_i(s_w), base.topk_i(s_b))
     assert torch.equal(s_w.ndis, s_b.ndis)
     assert torch.equal(s_w.ninserts, s_b.ninserts)
+
+
+def _fit_log(rows=200_000, feats=11, seed=3):
+    """A recall-predictor training set of a step log's shape: 11 features,
+    recall in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, feats)).astype(np.float32)
+    y = 1.0 / (1.0 + np.exp(-(x @ rng.normal(size=feats))))
+    y = np.clip(y + 0.05 * rng.normal(size=rows), 0.0, 1.0)
+    return x, y.astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["kmeans", "gbdt", "random_forest"])
+def test_fit_and_kmeans_repeat_bit_for_bit_on_the_card(dev, what):
+    """Two runs on the same inputs give the same bits: k-means centroids
+    (200,000 x 128 rows into 1024 clusters) and every tree's feat, thresh
+    and leaf of a GBDT (the fit's settings) and of a random forest on a
+    200,000-row, 11-feature log. Float index_add_ on the card adds in no
+    fixed order, which made these differ from call to call."""
+    if what == "kmeans":
+        from repro_torch.data import vectors
+        from repro_torch.index import kmeans
+        ds = vectors.make_dataset(n=200_000, d=128, num_learn=0,
+                                  num_queries=0, clusters=1024, seed=0)
+        x = torch.as_tensor(ds.base, device=dev)
+        assert torch.equal(kmeans.kmeans(x, 1024), kmeans.kmeans(x, 1024))
+        return
+    from repro_torch.gbdt import train as gbdt_train
+    x, y = _fit_log()
+    fit = (gbdt_train.fit if what == "gbdt"
+           else gbdt_train.fit_random_forest)
+    a, b = fit(x, y, device=dev), fit(x, y, device=dev)
+    for name in ("feat", "thresh", "leaf", "base"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 2, 4, 7])
+def test_sharded_flat_search_on_the_card_equals_flat_search(dev, shards):
+    """Every shard on cuda:0 (N = 200,000 rows, which 7 does not divide):
+    the ids, and the distances, equal flat.search's bit for bit, since
+    each pair's distance is computed the same way whatever the shard; each
+    shard launches l2_topk once a query chunk."""
+    from repro_torch.dist import collectives
+    from repro_torch.index import flat
+    from repro_torch.launch import mesh as mesh_lib
+    rng = np.random.default_rng(shards)
+    x = torch.as_tensor(rng.normal(size=(200_000, 128)).astype(np.float32),
+                        device=dev)
+    x[150_000:150_005] = x[17]           # ties across shard boundaries
+    q = torch.as_tensor(rng.normal(size=(1500, 128)).astype(np.float32),
+                        device=dev)
+    q[0] = x[17]
+    mesh = mesh_lib.make_search_mesh(shards, "cuda:0")
+    want = flat.search(q, x, 10)
+    before = cuda.LAUNCHES["l2_topk"]
+    got = collectives.sharded_flat_search(q, x, 10, mesh)
+    assert cuda.LAUNCHES["l2_topk"] == before + 2 * shards
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("shards", [1, 2, 4, 7])
+def test_sharded_probe_step_on_the_card_equals_probe_step(dev, shards,
+                                                          quantize):
+    """Per step, the sharded probe step over a placed index (every shard
+    on cuda:0) equals ivf.probe_step in every field, bit for bit; a third
+    of the queries stop at step 2, as DARTH stops them."""
+    from repro_torch import dist
+    from repro_torch.core import engines
+    from repro_torch.dist import collectives
+    from repro_torch.index import ivf
+    from repro_torch.launch import mesh as mesh_lib
+    rng = np.random.default_rng(7)
+    centers = rng.normal(size=(64, 64)) * 4
+    x = (centers[rng.integers(0, 64, 60_000)]
+         + rng.normal(size=(60_000, 64))).astype(np.float32)
+    qn = (centers[rng.integers(0, 64, 300)]
+          + rng.normal(size=(300, 64))).astype(np.float32)
+    index = ivf.build(x, nlist=64, seed=0, quantize=quantize, device=dev)
+    mesh = mesh_lib.make_search_mesh(shards, "cuda:0")
+    placed = dist.place_index(index, mesh)
+    step = collectives.make_sharded_probe_step(mesh)
+    q = torch.as_tensor(qn, device=dev)
+    s1 = ivf.init_state(index, q, k=10, nprobe=12)
+    s2 = collectives.make_sharded_ivf_init(mesh)(placed, q, k=10, nprobe=12)
+    stop = torch.as_tensor(np.arange(300) % 3 == 0, device=dev)
+    for t in range(13):
+        if t == 2:
+            s1 = engines.set_active(s1, s1.active & ~stop)
+            s2 = engines.set_active(s2, s2.active & ~stop)
+        before = cuda.LAUNCHES["bucket_probe"]
+        s1 = ivf.probe_step(index, s1)
+        s2 = step(placed, s2)
+        assert cuda.LAUNCHES["bucket_probe"] == before + 1 + shards
+        for name in ("topk_d", "topk_i", "ndis", "ninserts", "probe_pos",
+                     "active"):
+            assert torch.equal(getattr(s1, name), getattr(s2, name)), \
+                (t, name)
