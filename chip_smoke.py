@@ -143,11 +143,29 @@ Phases, each fatal on failure:
               query to phase 5's hosts-1 IVF f32 run; at 2 shards
               ``Darth.fit(mesh=)`` on 512 learn queries, its step log and
               trees equal to an unsharded fit's (its ground-truth seconds
-              beside phase 2's). The counts are zeroed after the
-              single-device references and read after the last check;
-              each kernel must have run. Then l2_topk and bucket_probe on
-              shard 0's slice at 2, 4 and 7 shards, against their plain
-              versions and timed beside their bounds.
+              beside phase 2's). HNSW: phase 4's graph placed
+              at the same counts (750,000 rows pad to 750,001 at 7),
+              ``hnsw.search_sharded`` on the first 256 test queries (a
+              cut, printed) equal to ``hnsw.search``, exact and with a
+              2^18-wide hashed filter (7 shards must raise); at 2 shards
+              ``Darth.search`` through ``sharded_hnsw_engine`` equal to
+              phase 4's Darth and ``Darth.fit(mesh=)`` equal to an
+              unsharded fit. A mutable view: a new ``MutableIndex``
+              over phase 2's index with a 1 % / 0.5 % burst, placed at 2
+              and 7 shards, ``Darth.search`` through
+              ``mutable_engine(sharded_ivf_engine)`` equal to the
+              unsharded mutable engine with 0 deleted ids, before and
+              after ``compact()`` + ``refresh_placed_view``. The hosts
+              axis: ``DarthServer`` on ``make_serve_mesh(2, 2)`` with
+              hosts 2, phase 5's IVF f32 stream (64 and 128 slots) equal
+              to phase 5's hosts-1 run, and the 256 HNSW queries equal
+              to a single-device serve. The counts are zeroed after the
+              IVF single-device references and read after the last
+              check, less the single-device references run between;
+              each kernel must have run. Then l2_topk and bucket_probe
+              on shard 0's slice at 2, 4 and 7 shards, and l2_topk on
+              shard 0 of the sharded HNSW fit's ground truth, against
+              their plain versions and timed beside their bounds.
 10. quickstart: ``repro_torch.examples.quickstart.main()`` at its own
               size (30,000 x 32, nlist 128), which prints its table; each
               target's recall must reach target - 0.03 and every kernel
@@ -232,6 +250,20 @@ COLD_SLOTS, COLD_LOOKAHEAD, COLD_STAGING, COLD_FIRST = 256, 4, 8, 4
 # Darth.fit(mesh=) check (a whole fit's step log would repeat phase 2's).
 SHARD_COUNTS = (1, 2, 4, 7)
 SHARD_FIT_LEARN = 512
+# Phase 9's HNSW checks run on phase 4's graph over its first 256 test
+# queries (a cut for the script's time); the hashed filter is 2^18 wide
+# (a power of two that 1, 2 and 4 shards divide and 7 does not); the
+# mutable view is placed at 2 and 7 shards; the hosts mesh is 2 x 2.
+SHARD_HNSW_Q = 256
+SHARD_HASH_W = 1 << 18
+SHARD_HASH_COUNTS = (1, 2, 4)
+SHARD_MUT_COUNTS = (2, 7)
+SHARD_CUTS = (
+    "the sharded HNSW checks use the first 256 of the 1,000 test queries "
+    "(each runs the 750,000-row graph at ef 384 to natural termination, "
+    "at four shard counts, exact and hashed)",
+    "the hosts-mesh HNSW serve uses those 256 queries and their phase 5 "
+    "targets, against a single-device serve of the same queries")
 MUTATE_CUTS = (
     "the IVF refit uses the first 2,560 learn queries, not 10,000 (the "
     "full refit would repeat phase 2's ~53 s step log)",
@@ -1677,7 +1709,7 @@ def cold_path(ds, index, darth, gt, served, r_targets, tol, card):
 
 
 def sharded_path(ds, index, darth, results, served, r_targets, gt, tol,
-                 card):
+                 card, hnsw_fitted):
     """Phase 9: the sharded IVF path on phase 2's index and Darth, for
     each shard count in SHARD_COUNTS with every shard on cuda:0 (the
     one-controller mesh): place_index (seconds, resident bytes per
@@ -1689,11 +1721,16 @@ def sharded_path(ds, index, darth, results, served, r_targets, gt, tol,
     shards the DarthServer over the mesh, equal per query to phase 5's
     hosts-1 IVF f32 run; at 2 shards Darth.fit(mesh=) on SHARD_FIT_LEARN
     learn queries, its step log and trees equal to an unsharded fit's.
-    Each placement is freed before the next. The counts are zeroed after
-    the single-device references and read after the last check; then
-    l2_topk and bucket_probe are held against their plain versions on
-    shard 0's slice at each shard count above 1. Returns (results,
-    launches by kernel on this path, failures, {kernel: [shape rows]})."""
+    Each placement is freed before the next. Then the sharded HNSW graph
+    (``shard_hnsw``), a mutable view under a mesh (``shard_mutable``)
+    and the serve mesh's hosts axis (``shard_hosts``). The counts are
+    zeroed after the IVF single-device references and read after the
+    last check, less the launches of the single-device references run
+    in between; then l2_topk and bucket_probe are held against their
+    plain versions on shard 0's slice at each shard count above 1, and
+    l2_topk on shard 0 of the sharded HNSW fit's ground truth. Returns
+    (results, launches by kernel on this path, failures, {kernel: [shape
+    rows]})."""
     import types
 
     import numpy as np
@@ -1826,11 +1863,39 @@ def sharded_path(ds, index, darth, results, served, r_targets, gt, tol,
         if bad:
             failures.append(f"sharded path, {nshards} shards, differs from "
                             f"the single-device path: " + "; ".join(bad))
-    launches = dict(cuda.LAUNCHES)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()   # the IVF part
+    excluded = {name: 0 for name in cuda.LAUNCHES}
+
+    def reference(fn, *args, **kwargs):
+        """A single-device reference run, left out of the path's counts."""
+        before = dict(cuda.LAUNCHES)
+        res = fn(*args, **kwargs)
+        for name in excluded:
+            excluded[name] += cuda.LAUNCHES[name] - before[name]
+        return res
+
+    for line in SHARD_CUTS:
+        print(f"[shard] CUT: {line}", flush=True)
+    out["cuts"] = SHARD_CUTS
+    hd = hnsw_fitted["darth"]
+    for name, part in (
+            ("hnsw", lambda: shard_hnsw(ds, hd, reference)),
+            ("mutable", lambda: shard_mutable(ds, index, darth, reference)),
+            ("hosts", lambda: shard_hosts(ds, index, darth, hd, served,
+                                          r_targets, reference))):
+        t0 = time.time()
+        row, bad = part()
+        row["wall_s"] = time.time() - t0
+        out[name] = row
+        failures += bad
+        print(f"[shard] {name} took {row['wall_s']:.1f}s", flush=True)
+    launches = {name: cuda.LAUNCHES[name] - excluded[name]
+                for name in cuda.LAUNCHES}
     out["drive_s"] = time.time() - t_drive
     out["launches"] = launches
-    out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    print(f"[shard] launches_by_path['sharded'] {launches} peak bytes "
+    out["reference_launches"] = excluded
+    print(f"[shard] launches_by_path['sharded'] {launches} (single-device "
+          f"references left out: {excluded}); IVF part's peak bytes "
           f"{out['peak_bytes']}", flush=True)
     for name in launches:
         if launches[name] < 1:
@@ -1889,8 +1954,323 @@ def sharded_path(ds, index, darth, results, served, r_targets, gt, tol,
             failures.append(f"bucket_probe disagrees with plain at {case}")
         del placed, store, pargs
         torch.cuda.empty_cache()
+    # l2_topk on shard 0 of the sharded HNSW fit's ground truth (2
+    # shards of the graph's rows, SHARD_FIT_LEARN learn queries)
+    mesh = mesh_lib.make_search_mesh(2, dev)
+    xh = xb[:hd.engine.index.num_vectors]
+    xs = sharding.database_shards(xh, mesh)
+    sqs = sharding.database_shards((xh ** 2).sum(1), mesh, PAD_SQNORM)
+    qf = ql[:SHARD_FIT_LEARN]
+    case = "sharded HNSW fit ground truth, shard 0 of 2"
+    d_k, i_k = cuda.l2_topk(qf, xs[0], sqs[0], 10)
+    d_r, i_r = ref.l2_topk_ref(qf, xs[0], sqs[0], 10)
+    ltol = 1e-3 + 1e-5 * float(sqs[0].max())
+    err, agree, ok = topk_agreement(d_k, i_k, d_r, i_r, ltol)
+    row = shape_row_l2(case, qf, xs[0], sqs[0], 10,
+                       out["hnsw"]["fit"]["launches"]["l2_topk"], 5)
+    row.update(max_abs_err=err, id_agreement=agree, tol=ltol)
+    shapes["l2_topk"].append(row)
+    print(f"[shard] l2_topk {row}", flush=True)
+    if not ok:
+        failures.append(f"l2_topk disagrees with plain at {case}")
+    del xs, sqs, d_k, i_k, d_r, i_r
+    torch.cuda.empty_cache()
     out["wall_s"] = time.time() - t_start
     return out, launches, failures, shapes
+
+def differ_hnsw(a, b):
+    """Queries whose ids, distances, ndis, ninserts or nstep differ
+    between two HNSW searches (d, i, state)."""
+    (da, ia, sa), (db, ib, sb) = a, b
+    return int(((ia != ib).any(1) | (da != db).any(1)
+                | (sa.ndis != sb.ndis) | (sa.ninserts != sb.ninserts)
+                | (sa.nstep != sb.nstep)).sum())
+
+
+def shard_hnsw(ds, hd, reference):
+    """Phase 9, HNSW: phase 4's graph placed at each of SHARD_COUNTS on
+    cuda:0 (750,000 rows pad to 750,001 at 7 shards), with place
+    seconds, bytes a shard and the peak memory of each count;
+    hnsw.search_sharded on the first SHARD_HNSW_Q test queries against
+    hnsw.search, exact and (at SHARD_HASH_COUNTS) with the hashed
+    filter SHARD_HASH_W wide, every id, distance and counter equal; at
+    7 shards the hashed filter must raise. At 2 shards Darth.search
+    through sharded_hnsw_engine with phase 4's predictor, every
+    decision equal to phase 4's Darth on the same queries, and
+    Darth.fit(mesh=) on SHARD_FIT_LEARN learn queries, its step log and
+    trees equal to an unsharded fit's. Returns (row, failures)."""
+    import numpy as np
+    import torch
+    from repro_torch import dist
+    from repro_torch.core import api, engines
+    from repro_torch.index import hnsw
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import mesh as mesh_lib
+    graph = hd.engine.index
+    dev = graph.device
+    n = graph.num_vectors
+    qh = torch.as_tensor(ds.queries[:SHARD_HNSW_Q], device=dev)
+    kw = dict(k=10, ef=384)
+    failures = []
+    single = reference(hnsw.search, graph, qh, **kw)
+    hashed = reference(hnsw.search, graph, qh, visited_width=SHARD_HASH_W,
+                       **kw)
+    ref_darth = {rt: reference(timed_search, hd, qh, rt) for rt in TARGETS}
+    sub = ds.learn[:SHARD_FIT_LEARN]
+    d_plain = api.Darth(make_engine=None, engine=hd.engine)
+    reference(d_plain.fit, sub, ds.base[:n])
+    out = {"rows": n, "queries": SHARD_HNSW_Q, "shards": {}}
+    for nshards in SHARD_COUNTS:
+        before = dict(cuda.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh = mesh_lib.make_search_mesh(nshards, dev)
+        t0 = time.time()
+        placed = dist.place_index(graph, mesh)
+        torch.cuda.synchronize()
+        row = {"place_s": time.time() - t0, "rows": placed.num_vectors,
+               "shard_bytes": [sum(t[j].numel() * t[j].element_size()
+                                   for t in (placed.vectors, placed.sqnorm,
+                                             placed.neighbors))
+                               for j in range(nshards)]}
+        t0 = time.time()
+        got = hnsw.search_sharded(placed, qh, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        row["search_sharded"] = {"s": time.time() - t0,
+                                 "differ": differ_hnsw(got, single)}
+        del got
+        if nshards in SHARD_HASH_COUNTS:
+            t0 = time.time()
+            got = hnsw.search_sharded(placed, qh, mesh=mesh,
+                                      visited_width=SHARD_HASH_W, **kw)
+            torch.cuda.synchronize()
+            row["hashed"] = {"s": time.time() - t0,
+                             "differ": differ_hnsw(got, hashed)}
+            del got
+        else:
+            try:
+                hnsw.search_sharded(placed, qh, mesh=mesh,
+                                    visited_width=SHARD_HASH_W, **kw)
+                row["hashed"] = {"raised": False}
+            except ValueError:
+                row["hashed"] = {"raised": True}
+        if nshards == 2:
+            sd = api.Darth(make_engine=None, trained=hd.trained,
+                           engine=engines.sharded_hnsw_engine(
+                               placed, mesh, max_steps=1200, **kw))
+            row["darth"] = {}
+            for rt in TARGETS:
+                ids, st, secs = timed_search(sd, qh, rt)
+                row["darth"][str(rt)] = {
+                    "wall_s": secs, "qps": SHARD_HNSW_Q / secs,
+                    "npred": float(st.npred.float().mean()),
+                    "differ_from_phase4": same_decisions(
+                        (ids, st), ref_darth[rt][:2])}
+            fit_before = dict(cuda.LAUNCHES)
+            fitted = api.Darth(make_engine=None, engine=sd.engine)
+            t0 = time.time()
+            fitted.fit(sub, ds.base[:n], mesh=mesh)
+            pa, pb = (fitted.trained.predictor.params,
+                      d_plain.trained.predictor.params)
+            row["fit"] = {
+                "learn": SHARD_FIT_LEARN, "s": time.time() - t0,
+                "split_s": fitted.fit_seconds,
+                "unsharded_split_s": d_plain.fit_seconds,
+                "launches": {k: cuda.LAUNCHES[k] - fit_before[k]
+                             for k in cuda.LAUNCHES},
+                "log_equal": all(np.array_equal(
+                    getattr(fitted._last_log, f),
+                    getattr(d_plain._last_log, f))
+                    for f in ("features", "recall", "ndis", "valid")),
+                "trees_equal": all(torch.equal(getattr(pa, f),
+                                               getattr(pb, f))
+                                   for f in ("feat", "thresh", "leaf",
+                                             "base"))}
+            out["fit"] = row["fit"]
+            del sd, fitted, pa, pb
+        torch.cuda.synchronize()
+        row["peak_bytes"] = torch.cuda.max_memory_allocated()
+        row["launches"] = {k: cuda.LAUNCHES[k] - before[k]
+                           for k in cuda.LAUNCHES}
+        del placed
+        torch.cuda.empty_cache()
+        out["shards"][str(nshards)] = row
+        print(f"[shard] hnsw {nshards} shards {row}", flush=True)
+        bad = []
+        if row["search_sharded"]["differ"]:
+            bad.append(f"search_sharded {row['search_sharded']}")
+        if row["hashed"].get("differ") or row["hashed"].get("raised") is \
+                False:
+            bad.append(f"hashed filter {row['hashed']}")
+        for rt, r in row.get("darth", {}).items():
+            if r["differ_from_phase4"]:
+                bad.append(f"Darth.search at {rt}: "
+                           f"{r['differ_from_phase4']} queries")
+        if "fit" in row and not (row["fit"]["log_equal"]
+                                 and row["fit"]["trees_equal"]):
+            bad.append(f"Darth.fit(mesh=) {row['fit']}")
+        if bad:
+            failures.append(f"sharded HNSW, {nshards} shards, differs from "
+                            f"the single-device path: " + "; ".join(bad))
+    if "fit" not in out:
+        failures.append("sharded HNSW: Darth.fit(mesh=) did not run")
+    return out, failures
+
+
+def shard_mutable(ds, index, darth, reference):
+    """Phase 9, a mutable view under a mesh: a new MutableIndex over phase
+    2's index with phase 6's HNSW-sized burst (HNSW_MUTATE_INS /
+    HNSW_MUTATE_DEL of N, drift MUTATE_DRIFT, drawn as phase 6 draws),
+    the view placed at each of SHARD_MUT_COUNTS on cuda:0. Darth.search
+    with phase 2's predictor through mutable_engine(sharded_ivf_engine)
+    equals the unsharded mutable engine's per query at each target and
+    returns no deleted id; then compact(), refresh_placed_view(base=,
+    delta=), and the same again. Phase 2's index must be unchanged.
+    Returns (row, failures)."""
+    import torch
+    from repro_torch import dist, mutate
+    from repro_torch.core import api, engines
+    from repro_torch.data import vectors
+    from repro_torch.launch import mesh as mesh_lib
+    dev = index.device
+    n = ds.base.shape[0]
+    q = torch.as_tensor(ds.queries, device=dev)
+    kw = dict(k=10, nprobe=index.nlist)
+    frozen = {name: getattr(index, name).clone() for name in
+              ("bucket_ids", "bucket_sqnorm", "bucket_sizes")}
+    cap = max(10, -(-int(round(HNSW_MUTATE_INS * n)) // 128) * 128)
+    mut = mutate.MutableIndex(index, capacity=cap)
+    t0 = time.time()
+    mut.apply(vectors.mutation_stream(ds, HNSW_MUTATE_INS, HNSW_MUTATE_DEL,
+                                      drift=MUTATE_DRIFT, steps=4, seed=1))
+    torch.cuda.synchronize()
+    out = {"delta_capacity": cap, "apply_s": time.time() - t0,
+           "delta_live": mut.num_delta,
+           "tombstones": int(len(mut.deleted_ids)), "steps": {}}
+    failures = []
+    meshes = {s: mesh_lib.make_search_mesh(s, dev) for s in SHARD_MUT_COUNTS}
+    views = {}
+
+    def darth_over(base, delta, mesh=None):
+        eng = (engines.ivf_engine(base, **kw) if mesh is None
+               else engines.sharded_ivf_engine(base, mesh, **kw))
+        return api.Darth(make_engine=None, trained=darth.trained,
+                         engine=engines.mutable_engine(eng, delta))
+
+    def check(step):
+        dead = torch.as_tensor(mut.deleted_ids, device=dev)
+        single = darth_over(mut.base, mut.delta)
+        want = {rt: reference(timed_search, single, q, rt) for rt in TARGETS}
+        rows = {}
+        for s, mesh in meshes.items():
+            sd = darth_over(views[s].base, views[s].delta, mesh)
+            assert sd.engine.name == "ivf-sharded+delta"
+            r = {}
+            for rt in TARGETS:
+                ids, st, secs = timed_search(sd, q, rt)
+                r[str(rt)] = {
+                    "wall_s": secs, "qps": q.shape[0] / secs,
+                    "differ": same_decisions((ids, st), want[rt][:2]),
+                    "deleted_returned": int(torch.isin(ids, dead).sum())}
+                if r[str(rt)]["differ"] or r[str(rt)]["deleted_returned"]:
+                    failures.append(f"mutable view {step}, {s} shards, "
+                                    f"target {rt}: {r[str(rt)]}")
+            rows[str(s)] = r
+        out["steps"][step] = rows
+        print(f"[shard] mutable {step} {rows}", flush=True)
+
+    for s, mesh in meshes.items():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        views[s] = dist.place_index(mut.view(), mesh)
+        torch.cuda.synchronize()
+        out[f"place_s_{s}"] = time.time() - t0
+    check("after_burst")
+    t0 = time.time()
+    mut.compact()
+    torch.cuda.synchronize()
+    out["compact_s"] = time.time() - t0
+    for s, mesh in meshes.items():
+        t0 = time.time()
+        views[s] = dist.refresh_placed_view(views[s], mesh, base=mut.base,
+                                            delta=mut.delta)
+        torch.cuda.synchronize()
+        out[f"refresh_s_{s}"] = time.time() - t0
+    check("after_compaction")
+    out["phase2_index_unchanged"] = all(
+        torch.equal(getattr(index, name), t) for name, t in frozen.items())
+    if not out["phase2_index_unchanged"]:
+        failures.append("mutable view: phase 2's index changed")
+    del views, mut
+    torch.cuda.empty_cache()
+    return out, failures
+
+
+def shard_hosts(ds, index, darth, hd, served, r_targets, reference):
+    """Phase 9, the serve mesh's hosts axis: DarthServer on
+    make_serve_mesh(2, 2, cuda:0) with hosts 2 over phase 2's index
+    placed on that mesh, serving phase 5's IVF f32 stream (its queries
+    and targets) twice: with the launcher's SERVE_SLOTS slots split over
+    the two host groups, and with SERVE_SLOTS slots in each group (each
+    group then steps phase 5's batch shape); both equal per query to
+    phase 5's hosts-1 run. Then the first SHARD_HNSW_Q queries on phase
+    4's graph at hosts 2 x 2 shards (SERVE_SLOTS a group), equal to a
+    single-device serve of the same queries at SERVE_SLOTS slots.
+    Returns (row, failures)."""
+    import torch
+    from repro_torch import dist
+    from repro_torch.core import engines
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve import DarthServer
+    dev = index.device
+    nq = ds.queries.shape[0]
+    mesh = mesh_lib.make_serve_mesh(2, 2, dev)
+    out = {"mesh": mesh_lib.describe(mesh), "runs": {}}
+    failures = []
+
+    def serve(name, engine, d, queries, rts, want, slots, **kw):
+        srv = DarthServer(engine, d.trained.predictor, d.interval_for_target,
+                          num_slots=slots, steps_per_sync=SERVE_SPS, **kw)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res, stats = srv.serve(queries, rts)
+        torch.cuda.synchronize()
+        row = serve_row(res, stats, time.time() - t0)
+        row.update(slots=slots, groups=len(srv._group_index))
+        if want is not None:
+            row["differ"] = same_results(want, res)
+            if row["differ"] or row["completed"] != len(queries):
+                failures.append(f"hosts mesh {name}: {row}")
+        out["runs"][name] = row
+        print(f"[shard] hosts {name} {row}", flush=True)
+        return res
+
+    t0 = time.time()
+    placed = dist.place_index(index, mesh)
+    torch.cuda.synchronize()
+    out["place_s"] = time.time() - t0
+    out["shared_store"] = all(a is b for v in placed.host_views for a, b in
+                              zip(v.bucket_vecs, placed.bucket_vecs))
+    if not out["shared_store"]:
+        failures.append("hosts mesh: the host groups copied the store")
+    eng = engines.sharded_ivf_engine(placed, mesh, k=10, nprobe=index.nlist)
+    for slots in (SERVE_SLOTS, 2 * SERVE_SLOTS):
+        serve(f"ivf_f32_{slots}_slots", eng, darth, ds.queries, r_targets,
+              served, slots, mesh=mesh, hosts=2)
+    del placed, eng
+    graph = hd.engine.index
+    qh, rh = ds.queries[:SHARD_HNSW_Q], r_targets[:SHARD_HNSW_Q]
+    single = reference(serve, "hnsw_single_device", hd.engine, hd, qh, rh,
+                       None, SERVE_SLOTS)
+    placed = dist.place_index(graph, mesh)
+    eng = engines.sharded_hnsw_engine(placed, mesh, k=10, ef=384,
+                                      max_steps=1200)
+    serve("hnsw", eng, hd, qh, rh, single, 2 * SERVE_SLOTS, mesh=mesh,
+          hosts=2)
+    del placed, eng
+    torch.cuda.empty_cache()
+    out["queries"] = {"ivf": nq, "hnsw": SHARD_HNSW_Q}
+    return out, failures
 
 
 def quickstart_path(card):
@@ -2461,7 +2841,8 @@ def main() -> int:
     phase_done("8 cold")
     # -- 9. sharded path ----------------------------------------------------
     shard_out, shard_launches, failures, shard_shapes = sharded_path(
-        ds, index, darth, results, served_h1, serve_targets, gt, btol, card)
+        ds, index, darth, results, served_h1, serve_targets, gt, btol, card,
+        hnsw_fitted)
     if failures:
         return fail("; ".join(failures))
     print(f"[shard] phase 9 took {shard_out['wall_s']:.1f}s", flush=True)

@@ -94,6 +94,34 @@ def hnsw_engine(index: hnsw_lib.HNSWIndex, *, k: int, ef: int,
     )
 
 
+def sharded_hnsw_engine(index, mesh, *, k: int, ef: int, max_steps: int = 0,
+                        visited_width: int = 0) -> Engine:
+    """The beam loop over a row-sharded graph (``dist.place_index`` +
+    ``dist.collectives.make_sharded_beam_step``). Same protocol and the
+    same HNSWSearchState as ``hnsw_engine`` (its visited structure a
+    tuple of per-shard blocks), so darth_search, budget_search and the
+    slot pool drive it unchanged; only the beam step's data movement
+    differs. ``max_steps`` defaults to 8 * ef; ``visited_width`` > 0
+    selects the hashed filter (a power of two the shard count divides).
+    ``index`` must have been placed with ``dist.place_index(index,
+    mesh)``."""
+    from repro_torch.dist import collectives
+
+    init = collectives.make_sharded_hnsw_init(mesh)
+    step = collectives.make_sharded_beam_step(mesh)
+    return Engine(
+        index=index,
+        init=lambda idx, q: init(idx, q, ef=ef, visited_width=visited_width),
+        step=lambda idx, s: step(idx, s, k=k),
+        topk_d=lambda s: s.cand_d[:, :k],
+        topk_i=lambda s: s.cand_i[:, :k],
+        nstep=lambda s: s.nstep,
+        max_steps=max_steps or 8 * ef,
+        name="hnsw-sharded",
+        k=k,
+    )
+
+
 def mutable_engine(base_engine: Engine, delta) -> Engine:
     """Wrap an engine with a delta tier: init adds one brute-force delta
     scan (fused l2_topk), step is the base step, and the top-k getters

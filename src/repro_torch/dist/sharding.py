@@ -1,30 +1,44 @@
-"""Index placement on a search mesh (a port of the index part of
-``repro.dist.sharding``): ``place_index`` for an IVF index and the row
-padding of a flat database (``database_shards``).
+"""Index placement on a search or serve mesh (a port of the index and
+slot part of ``repro.dist.sharding``): ``place_index`` for an IVF index,
+an HNSW graph and a mutable view of either, ``refresh_placed_view``, the
+row padding of a flat database (``database_shards``), and the slot rule
+of the multi-host pool (``slot_sharding``, ``constrain_slots``).
 
-The sharded dim (a bucket's cap, a database's rows) is padded up to a
-multiple of the shard count first; padded slots keep the index's own
-padding contract (vecs 0, ids -1, sqnorm +inf), so they never surface in
-a top-k. Shard s holds the contiguous block ``[s * m, (s + 1) * m)`` of
-the padded dim (m = padded / S), as its own contiguous tensor on
-``mesh.devices[s]``, so shard order is row order.
+The sharded dim (a bucket's cap, a graph's or a database's rows) is
+padded up to a multiple of the shard count first; padded slots keep the
+index's own padding contract (vecs 0, ids -1, sqnorm +inf), so they
+never surface in a top-k. Shard s holds the contiguous block
+``[s * m, (s + 1) * m)`` of the padded dim (m = padded / S), as its own
+contiguous tensor on ``mesh.devices[s]``, so shard order is row order.
+
+On a serve mesh (``("hosts", "model")``) the index stays GLOBAL: every
+placement rule names only ``"model"``, so host group h reads shard s
+from ``mesh.devices[h * S + s]`` (``host_index``). Where two host groups
+name the same device they share the same tensors: on one card the store
+is held once, whatever the number of host groups.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.padding import PAD_ID, PAD_SQNORM
+from repro_torch.index.hnsw import HNSWIndex
 from repro_torch.index.ivf import IVFIndex
-from repro_torch.launch.mesh import SHARD_AXIS, SearchMesh
+from repro_torch.launch.mesh import HOSTS_AXIS, SHARD_AXIS, SearchMesh
 
 # Bucket-store arrays whose cap dim (axis 1) is split across shards, with
 # their pad values. bucket_sizes [nlist] is NOT here: it replicates, so
 # the probe step's ndis counts true bucket populations.
 _CAP_SHARDED_NAMES = {"bucket_vecs": 0, "bucket_ids": PAD_ID,
                       "bucket_sqnorm": PAD_SQNORM}
+# HNSW graph arrays whose node dim (axis 0) is split across shards.
+# entry / route_ids replicate: routing and the frontier bookkeeping stay
+# on the lead device, only vector and adjacency rows live on their shard.
+_ROW_SHARDED_NAMES = {"vectors": 0, "neighbors": PAD_ID,
+                      "sqnorm": PAD_SQNORM}
 
 
 def shard_count(mesh: SearchMesh, axis: str = SHARD_AXIS) -> int:
@@ -32,13 +46,15 @@ def shard_count(mesh: SearchMesh, axis: str = SHARD_AXIS) -> int:
     return int(mesh.shape[axis]) if axis in mesh.axis_names else 1
 
 
-def _shard_devices(mesh: SearchMesh) -> Tuple[torch.device, ...]:
-    if tuple(mesh.axis_names) != (SHARD_AXIS,):
-        raise NotImplementedError(
-            f"placement on a mesh with axes {mesh.axis_names}: only the "
-            f"1-D ('{SHARD_AXIS}',) search mesh is ported (a 'hosts' axis "
-            f"is ROADMAP Queue 1 item 3, slice 3.4)")
-    return mesh.devices
+def shard_devices(mesh: SearchMesh) -> Tuple[torch.device, ...]:
+    """The devices of host group 0's shards, in shard order."""
+    if tuple(mesh.axis_names) not in ((SHARD_AXIS,),
+                                      (HOSTS_AXIS, SHARD_AXIS)):
+        raise ValueError(
+            f"placement on a mesh with axes {mesh.axis_names}: a search "
+            f"mesh is ('{SHARD_AXIS}',) and a serve mesh "
+            f"('{HOSTS_AXIS}', '{SHARD_AXIS}')")
+    return mesh.host(0).devices
 
 
 def _blocks(t: torch.Tensor, dim: int, devices, value) -> List[torch.Tensor]:
@@ -69,18 +85,20 @@ def database_shards(x: torch.Tensor, mesh: SearchMesh,
     with ``value`` to a multiple of S, shard s = rows [s*N/S, (s+1)*N/S)
     on ``mesh.devices[s]``. The sharded flat search pads vectors with 0
     and their sqnorm with +inf."""
-    return _blocks(x, 0, _shard_devices(mesh), value)
+    return _blocks(x, 0, shard_devices(mesh), value)
 
 
 @dataclasses.dataclass
 class PlacedIVFIndex:
-    """An IVF index placed on a search mesh: each bucket's cap dim split
-    over the shards, the small tables replicated on the lead device.
+    """An IVF index placed on a mesh: each bucket's cap dim split over
+    the shards, the small tables replicated on the lead device.
 
     Reads like an ``IVFIndex`` where the engine, ``Darth`` and the server
     read one (``device``, ``nlist``, ``cap``, ``dim``, ``num_vectors``,
     ``quantized``, ``hot_map``); the store itself is only reachable per
-    shard, through ``dist.collectives.make_sharded_probe_step``."""
+    shard, through ``dist.collectives.make_sharded_probe_step``. On a
+    serve mesh, ``host_views[h]`` is host group h's placement
+    (``host_index``)."""
     mesh: SearchMesh
     centroids: torch.Tensor                  # f32[nlist, D], lead
     bucket_vecs: Tuple[torch.Tensor, ...]    # S x [nlist, cap/S, D]
@@ -90,6 +108,8 @@ class PlacedIVFIndex:
     scale: torch.Tensor                      # f32[D], lead
     offset: torch.Tensor                     # f32[D], lead
     hot_map: Optional[torch.Tensor] = None   # i32[nlist], lead
+    host_views: Tuple[Any, ...] = dataclasses.field(
+        default=(), repr=False, compare=False)
 
     @property
     def quantized(self) -> bool:
@@ -121,40 +141,235 @@ class PlacedIVFIndex:
         return len(self.bucket_vecs)
 
 
-def place_index(index, mesh: SearchMesh) -> PlacedIVFIndex:
-    """Place an IVF index on ``mesh`` for the sharded probe step: every
-    bucket's row block [cap, D] is padded on the cap dim to a multiple of
-    S (vecs 0, ids -1, sqnorm +inf) and split into S contiguous
-    [nlist, cap/S, .] tensors, shard s on ``mesh.devices[s]``, so each
-    shard scans its slice of every probed bucket and only [B, k]
-    candidate lists cross shards. ``centroids``, ``bucket_sizes``, the
-    SQ8 tables and ``hot_map`` are copied to the lead device. On a
-    1-shard mesh the store is the index's own (padded only if needed).
+@dataclasses.dataclass
+class PlacedHNSWIndex:
+    """An HNSW graph placed on a mesh: vectors, sqnorm and neighbors split
+    on the node dim (N padded to a multiple of S), the entry, the routing
+    sample and the SQ8 tables on the lead device. The routing sample's
+    vectors (as f32) and sqnorm are gathered once here, so the sharded
+    init routes with no cross-shard gather.
 
-    A mutable view (ROADMAP Queue 1 item 3, slice 3.4) and an HNSW graph
-    (slice 3.3) are not ported yet and raise."""
-    if not isinstance(index, IVFIndex):
-        kind = type(index).__name__
-        piece = ("3.4 (a mutable view under a mesh)"
-                 if hasattr(index, "base") and hasattr(index, "delta")
-                 else "3.3 (the sharded HNSW graph)"
-                 if hasattr(index, "neighbors") else None)
-        if piece is None:
-            raise TypeError(f"place_index takes an IVFIndex, got {kind}")
-        raise NotImplementedError(
-            f"place_index({kind}): not ported yet, ROADMAP Queue 1 item 3, "
-            f"slice {piece}")
-    devices = _shard_devices(mesh)
-    lead = mesh.lead
-    store = {name: _blocks(getattr(index, name), 1, devices, value)
+    Reads like an ``HNSWIndex`` where the engine, ``Darth`` and the
+    server read one (``device``, ``num_vectors`` = the padded N,
+    ``degree``, ``quantized``); the rows are only reachable per shard,
+    through ``dist.collectives.make_sharded_beam_step``."""
+    mesh: SearchMesh
+    vectors: Tuple[torch.Tensor, ...]    # S x f32|int8[N_pad/S, D]
+    sqnorm: Tuple[torch.Tensor, ...]     # S x f32[N_pad/S]
+    neighbors: Tuple[torch.Tensor, ...]  # S x i32[N_pad/S, M]
+    entry: torch.Tensor                  # i32[], lead
+    route_ids: torch.Tensor              # i32[R], lead
+    route_vecs: torch.Tensor             # f32[R, D], lead
+    route_sqnorm: torch.Tensor           # f32[R], lead
+    scale: Optional[torch.Tensor] = None   # f32[D], lead
+    offset: Optional[torch.Tensor] = None  # f32[D], lead
+    host_views: Tuple[Any, ...] = dataclasses.field(
+        default=(), repr=False, compare=False)
+
+    @property
+    def quantized(self) -> bool:
+        return self.vectors[0].dtype == torch.int8
+
+    @property
+    def rows(self) -> int:
+        """Rows a shard holds (N_pad / S)."""
+        return self.vectors[0].shape[0]
+
+    @property
+    def num_vectors(self) -> int:
+        return sum(v.shape[0] for v in self.vectors)
+
+    @property
+    def degree(self) -> int:
+        return self.neighbors[0].shape[1]
+
+    @property
+    def dim(self) -> int:
+        return self.route_vecs.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.route_ids.device
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.vectors)
+
+
+def _is_view(index) -> bool:
+    """A ``mutate.MutableIndexView`` (base + delta ring)."""
+    return hasattr(index, "base") and hasattr(index, "delta")
+
+
+def _to(obj, dev):
+    """A dataclass of tensors (a delta ring) with every tensor on dev."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dev)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def _with_host_views(placed, mesh: SearchMesh, sharded):
+    """On a serve mesh with several host groups: ``placed`` (host group
+    0's) with one placement per group, each tensor moved to that group's
+    devices (``.to`` returns the tensor itself where the device is the
+    same, so groups that share devices share the tensors)."""
+    if mesh.num_hosts == 1:
+        return placed
+    views = []
+    for sub in mesh.host_meshes():
+        kw = {"mesh": sub}
+        for f in dataclasses.fields(placed):
+            v = getattr(placed, f.name)
+            if f.name in sharded:
+                kw[f.name] = tuple(t.to(d) for t, d in zip(v, sub.devices))
+            elif isinstance(v, torch.Tensor):
+                kw[f.name] = v.to(sub.lead)
+        views.append(dataclasses.replace(placed, **kw))
+    return dataclasses.replace(placed, host_views=tuple(views))
+
+
+def _place_ivf(index: IVFIndex, mesh: SearchMesh) -> PlacedIVFIndex:
+    devices = shard_devices(mesh)
+    lead = devices[0]
+    store = {name: tuple(_blocks(getattr(index, name), 1, devices, value))
              for name, value in _CAP_SHARDED_NAMES.items()}
 
     def rep(t):
         return None if t is None else t.to(lead)
-    return PlacedIVFIndex(
+    placed = PlacedIVFIndex(
         mesh=mesh, centroids=rep(index.centroids),
-        bucket_vecs=tuple(store["bucket_vecs"]),
-        bucket_ids=tuple(store["bucket_ids"]),
-        bucket_sqnorm=tuple(store["bucket_sqnorm"]),
         bucket_sizes=rep(index.bucket_sizes), scale=rep(index.scale),
-        offset=rep(index.offset), hot_map=rep(index.hot_map))
+        offset=rep(index.offset), hot_map=rep(index.hot_map), **store)
+    return _with_host_views(placed, mesh, _CAP_SHARDED_NAMES)
+
+
+def _place_hnsw(index: HNSWIndex, mesh: SearchMesh) -> PlacedHNSWIndex:
+    devices = shard_devices(mesh)
+    lead = devices[0]
+    rows = {name: tuple(_blocks(getattr(index, name), 0, devices, value))
+            for name, value in _ROW_SHARDED_NAMES.items()}
+    rids = index.route_ids.long()
+
+    def rep(t):
+        return None if t is None else t.to(lead)
+    placed = PlacedHNSWIndex(
+        mesh=mesh, entry=rep(index.entry), route_ids=rep(index.route_ids),
+        route_vecs=rep(index.vectors[rids].float()),
+        route_sqnorm=rep(index.sqnorm[rids]), scale=rep(index.scale),
+        offset=rep(index.offset), **rows)
+    return _with_host_views(placed, mesh, _ROW_SHARDED_NAMES)
+
+
+def place_index(index, mesh: SearchMesh):
+    """Place an index on ``mesh`` for the sharded search collectives
+    (``dist.collectives``):
+
+      * IVF (``make_sharded_probe_step``): every bucket's row block
+        [cap, D] is padded on the cap dim to a multiple of S (vecs 0, ids
+        -1, sqnorm +inf) and split into S contiguous [nlist, cap/S, .]
+        tensors, shard s on ``mesh.devices[s]``, so each shard scans its
+        slice of every probed bucket and only [B, k] candidate lists
+        cross shards. ``centroids``, ``bucket_sizes``, the SQ8 tables and
+        ``hot_map`` are copied to the lead device.
+      * HNSW (``make_sharded_beam_step``): vectors [N, D], sqnorm [N] and
+        neighbors [N, M] are padded on the node dim (vecs 0, sqnorm +inf,
+        neighbor ids -1) and split into S contiguous row blocks, so each
+        shard owns rows ``[s * N_pad/S, (s + 1) * N_pad/S)`` and only
+        [B, M] frontiers cross shards a step. The entry, the routing
+        sample (its ids, and its f32 vectors and sqnorm gathered once
+        here) and the SQ8 tables go to the lead device. An SQ8 graph
+        (int8 vectors) is placed by the same rules.
+      * A mutable view (``mutate.MutableIndexView``): the base is placed
+        by the rules above; the delta ring stays whole on the lead
+        device (the reference replicates it, so the delta scan needs no
+        cross-shard step). Tombstones need nothing of their own: they
+        live in the base arrays as pad slots and travel with them.
+
+    On a 1-shard mesh the store is the index's own (padded only if
+    needed). On a serve mesh the index stays global (module docstring):
+    the placement carries each host group's view (``host_index``)."""
+    if _is_view(index):
+        return dataclasses.replace(
+            index, base=place_index(index.base, mesh),
+            delta=_to(index.delta, shard_devices(mesh)[0]))
+    if isinstance(index, IVFIndex):
+        return _place_ivf(index, mesh)
+    if isinstance(index, HNSWIndex):
+        return _place_hnsw(index, mesh)
+    raise TypeError(f"place_index takes an IVFIndex, an HNSWIndex or a "
+                    f"mutable view of either, got {type(index).__name__}")
+
+
+def refresh_placed_view(view, mesh: SearchMesh, *, base=None,
+                        delta=None):
+    """Re-place ONLY the changed component of a placed mutable view.
+
+    ``base`` (when given, an UNPLACED index) is placed by the
+    ``place_index`` rules; ``delta`` (when given) goes whole to the lead
+    device. A component passed as None keeps its placement untouched,
+    so a delta write moves only the ring. The launcher's online
+    compaction pushes the result as a contents-only engine swap."""
+    if not _is_view(view):
+        raise TypeError(f"refresh_placed_view needs a MutableIndexView, "
+                        f"got {type(view).__name__}")
+    return dataclasses.replace(
+        view, base=view.base if base is None else place_index(base, mesh),
+        delta=(view.delta if delta is None
+               else _to(delta, shard_devices(mesh)[0])))
+
+
+def host_index(index, h: int):
+    """Host group h's view of an index placed on a serve mesh: its shards
+    on ``mesh.devices[h * S:(h + 1) * S]`` and its small tables (and a
+    mutable view's delta ring) on that group's lead device. Host group 0
+    of a placement without host views is the placement itself."""
+    if _is_view(index):
+        base = host_index(index.base, h)
+        return dataclasses.replace(index, base=base,
+                                   delta=_to(index.delta, base.device))
+    views = getattr(index, "host_views", ())
+    if views:
+        return views[h]
+    if h:
+        raise ValueError(f"host group {h}: the index was not placed on a "
+                         f"serve mesh with that many host groups")
+    return index
+
+
+def slot_sharding(mesh: Optional[SearchMesh], num_slots: int
+                  ) -> Tuple[slice, ...]:
+    """Which slot rows each host group owns: contiguous slices of B/H
+    rows over the ``"hosts"`` axis. Falls back to one slice of every
+    slot (the reference's replication) when the mesh has no hosts axis
+    or H does not divide num_slots."""
+    hosts = 1 if mesh is None else mesh.num_hosts
+    if hosts <= 1 or num_slots % hosts:
+        return (slice(0, num_slots),)
+    m = num_slots // hosts
+    return tuple(slice(h * m, (h + 1) * m) for h in range(hosts))
+
+
+def constrain_slots(tree, mesh: SearchMesh, num_slots: int) -> List[Any]:
+    """Split a tree of per-slot tensors (a tensor, a tuple or a dataclass
+    of them) by ``slot_sharding``: one tree per host group, each leaf
+    whose leading dim is num_slots cut to the group's rows and moved to
+    the group's lead device; other leaves are kept. Without a usable
+    hosts axis this is one tree on the lead device."""
+    groups = slot_sharding(mesh, num_slots)
+    leads = ([mesh.lead] if len(groups) == 1
+             else [sub.lead for sub in mesh.host_meshes()])
+
+    def cut(x, sl, dev):
+        if isinstance(x, torch.Tensor):
+            if x.ndim >= 1 and x.shape[0] == num_slots:
+                return x[sl].to(dev)
+            return x
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{
+                f.name: cut(getattr(x, f.name), sl, dev)
+                for f in dataclasses.fields(x)})
+        if isinstance(x, tuple):
+            return tuple(cut(v, sl, dev) for v in x)
+        return x
+    return [cut(tree, sl, dev) for sl, dev in zip(groups, leads)]

@@ -11,7 +11,9 @@ this path: its beam step is plain XLA):
                  layers.
   * frontier   = the best ``ef`` candidates per query, ascending, with an
                  expanded mask; result set = the first k of the frontier.
-  * visited    = per-query bitmap [B, N], or a hashed filter [B, W].
+  * visited    = per-query bitmap [B, N], or a hashed filter [B, W]; on
+                 a sharded graph (``search_sharded``) a tuple of S
+                 column blocks, block s on shard s's device.
   * one step   = expand the closest unexpanded candidate of every active
                  query: gather M neighbours, mask the visited, batched
                  distance, merge. ``ndis`` advances by the *new* distance
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -365,8 +367,9 @@ class HNSWSearchState:
     cand_d: torch.Tensor    # f32[B, ef] ascending (frontier + results)
     cand_i: torch.Tensor    # i32[B, ef]
     cand_exp: torch.Tensor  # bool[B, ef]
-    visited: torch.Tensor   # bool[B, N] exact bitmap, or [B, W] hashed
-    #                         filter when W < N (see hash_slot)
+    visited: Any            # bool[B, N] exact bitmap, or [B, W] hashed
+    #                         filter when W < N (see hash_slot); on a
+    #                         sharded graph a tuple of S column blocks
     first_nn: torch.Tensor  # f32[B]
     active: torch.Tensor    # bool[B]
     ndis: torch.Tensor      # i32[B]
@@ -377,42 +380,45 @@ class HNSWSearchState:
         return self.cand_d[:, :k], self.cand_i[:, :k]
 
 
-def init_state(index: HNSWIndex, q: torch.Tensor, *, ef: int,
-               visited_width: int = 0) -> HNSWSearchState:
-    """Start-of-search state. ``visited_width=0`` keeps the exact
-    [B, N] visited bitmap; a power-of-two width < N switches to the
-    hashed visited filter (a colliding NEW node is treated as seen)."""
-    b, n, dev = q.shape[0], index.num_vectors, index.device
+def check_visited_width(width: int, n: int) -> int:
+    """A hashed filter's width: a power of two in [2, n)."""
+    w = int(width)
+    if w < 2 or w & (w - 1) or w >= n:
+        raise ValueError(
+            f"visited_width must be a power of two in [2, N) "
+            f"(got {w} for N={n})")
+    return w
+
+
+def route(index, q: torch.Tensor, route_vecs: torch.Tensor,
+          route_sqnorm: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Upper-layer stand-in: one dense f32 scan of the routing sample
+    (its vectors [R, D] as f32 and their sqnorm [R]) picks a per-query
+    base-layer entry, the lowest routing column on a tie. Returns the
+    effective query and bias (``asym_query``), the entry ids i32[B] and
+    their clamped squared distances f32[B]."""
     qf = q.float()
     qsq = (qf ** 2).sum(1, keepdim=True)
     q_eff, qb = asym_query(index, qf, qsq)
-    # Upper-layer stand-in: one dense f32 scan of the routing sample picks
-    # a per-query base-layer entry (lowest routing column on a tie).
-    rids = index.route_ids.long()
-    rv = index.vectors[rids].float()                          # [R, D]
-    rd = index.sqnorm[rids][None, :] - 2.0 * q_eff @ rv.T + qb  # [B, R]
+    rd = route_sqnorm[None, :] - 2.0 * q_eff @ route_vecs.T + qb  # [B, R]
     r_best = rd.argmin(1)
-    e = index.route_ids[r_best]                               # [B]
+    e = index.route_ids[r_best]                                 # [B]
     ed = torch.clamp_min(rd.gather(1, r_best[:, None])[:, 0], 0.0)
+    return q_eff, qb, e, ed
+
+
+def start_state(q_eff: torch.Tensor, qb: torch.Tensor, e: torch.Tensor,
+                ed: torch.Tensor, visited, *, ef: int,
+                nroute: int) -> HNSWSearchState:
+    """The state after routing: the entry alone in the frontier, marked
+    in ``visited`` by the caller. The routing scan computes R distances
+    per query, so ndis starts at R, as in the reference."""
+    b, dev = q_eff.shape[0], q_eff.device
     cand_d = pad_dists((b, ef), dev)
     cand_d[:, 0] = ed
     cand_i = pad_ids((b, ef), dev)
     cand_i[:, 0] = e
-    rows = torch.arange(b, device=dev)
-    if visited_width:
-        w = int(visited_width)
-        if w < 2 or w & (w - 1) or w >= n:
-            raise ValueError(
-                f"visited_width must be a power of two in [2, N) "
-                f"(got {w} for N={n})")
-        visited = torch.zeros((b, w), dtype=torch.bool, device=dev)
-        visited[rows, hash_slot(e, w).long()] = True
-    else:
-        visited = torch.zeros((b, n), dtype=torch.bool, device=dev)
-        visited[rows, e.long()] = True
-    # The routing scan computes R distances per query, so ndis starts at
-    # R, as in the reference.
-    nroute = index.route_ids.shape[0]
     return HNSWSearchState(
         q=q_eff, qsq=qb, cand_d=cand_d, cand_i=cand_i,
         cand_exp=torch.zeros((b, ef), dtype=torch.bool, device=dev),
@@ -422,6 +428,27 @@ def init_state(index: HNSWIndex, q: torch.Tensor, *, ef: int,
         ninserts=torch.ones((b,), dtype=torch.int32, device=dev),
         nstep=torch.zeros((b,), dtype=torch.int32, device=dev),
     )
+
+
+def init_state(index: HNSWIndex, q: torch.Tensor, *, ef: int,
+               visited_width: int = 0) -> HNSWSearchState:
+    """Start-of-search state. ``visited_width=0`` keeps the exact
+    [B, N] visited bitmap; a power-of-two width < N switches to the
+    hashed visited filter (a colliding NEW node is treated as seen)."""
+    b, n, dev = q.shape[0], index.num_vectors, index.device
+    rids = index.route_ids.long()
+    q_eff, qb, e, ed = route(index, q, index.vectors[rids].float(),
+                             index.sqnorm[rids])
+    rows = torch.arange(b, device=dev)
+    if visited_width:
+        w = check_visited_width(visited_width, n)
+        visited = torch.zeros((b, w), dtype=torch.bool, device=dev)
+        visited[rows, hash_slot(e, w).long()] = True
+    else:
+        visited = torch.zeros((b, n), dtype=torch.bool, device=dev)
+        visited[rows, e.long()] = True
+    return start_state(q_eff, qb, e, ed, visited, ef=ef,
+                       nroute=index.route_ids.shape[0])
 
 
 def select_expand(s: HNSWSearchState
@@ -529,4 +556,21 @@ def search(index: HNSWIndex, q: torch.Tensor, *, k: int, ef: int,
     """Plain HNSW search to natural termination."""
     return _drive(beam_step, index,
                   init_state(index, q, ef=ef, visited_width=visited_width),
+                  k, max_steps or index.num_vectors)
+
+
+def search_sharded(index, q: torch.Tensor, *, k: int, ef: int, mesh,
+                   max_steps: int = 0, visited_width: int = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, HNSWSearchState]:
+    """Plain HNSW search through the sharded beam step: ``index`` must be
+    placed with ``dist.place_index(index, mesh)`` (vectors, sqnorm and
+    neighbors split on the node dim over the ``"model"`` axis; the
+    visited structure, exact bitmap or hashed filter, splits the same
+    way). Equals ``search`` (ids, distances, ndis, ninserts, nstep) on
+    any shard count; the step limit defaults to the padded N."""
+    from repro_torch.dist import collectives  # dist imports this module
+
+    init = collectives.make_sharded_hnsw_init(mesh)
+    return _drive(collectives.make_sharded_beam_step(mesh), index,
+                  init(index, q, ef=ef, visited_width=visited_width),
                   k, max_steps or index.num_vectors)

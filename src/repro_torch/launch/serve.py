@@ -1,7 +1,6 @@
 """Declarative-recall serving launcher: builds an index, fits DARTH once,
 then serves a stream of queries with per-request recall targets through
-the slot-pool server (the port of the reference's ``launch/serve.py``,
-its frozen-index single-device path).
+the slot-pool server (the port of the reference's ``launch/serve.py``).
 
 Usage (on the card; ``--device cpu`` runs the same on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --n 30000 \
@@ -37,16 +36,23 @@ the folded base at a drained boundary):
   PYTHONPATH=src python -m repro_torch.launch.serve --mutations 0.2,0.1 \
       --drift 0.3 --online-compact
 
-Sharded index (--shards N splits every bucket's cap over N shards on
---device: one shard per card with ``cuda``, all N on one device when it is
-named; the fit's and the report's ground truth row-shard the database
-the same way):
+Sharded index (--shards N splits every bucket's cap, or the graph's
+rows with --engine hnsw, over N shards on --device: one shard per card
+with ``cuda``, all N on one device when it is named; the fit's and the
+report's ground truth row-shard the database the same way). With
+--hosts H > 1 and a device that holds H x N shards the mesh gains a
+"hosts" axis and each host group steps its own slot slice against the
+global index; with --mutations the mutable view is placed on the mesh
+(the delta ring whole on the lead device) and re-placed by
+dist.refresh_placed_view:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda:0 \
       --shards 4
-  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --shards 2
---shards serves the IVF engine at --hosts 1 on a frozen index; with
---engine hnsw (ROADMAP Queue 1 item 3, slice 3.3), --hosts > 1 or
---mutations (slice 3.4) it raises.
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --shards 2 \
+      --engine hnsw
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --shards 2 \
+      --hosts 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --shards 2 \
+      --mutations 0.2,0.1 --online-compact
 """
 from __future__ import annotations
 
@@ -82,9 +88,11 @@ def main() -> None:
     ap.add_argument("--slots", type=int, default=64)
     ap.add_argument("--targets", type=str, default="0.8,0.9,0.95")
     ap.add_argument("--shards", type=int, default=None,
-                    help="shard the IVF index's bucket store over N shards "
-                         "on --device (0 = every visible card with "
-                         "--device cuda)")
+                    help="shard the index (IVF bucket store, HNSW graph "
+                         "rows) over N shards on --device (0 = every "
+                         "visible card with --device cuda); with --hosts "
+                         "H > 1 and H x N shards' room the mesh gains a "
+                         "'hosts' axis")
     ap.add_argument("--hosts", type=int, default=1,
                     help="split the slot pool into N per-host loops "
                          "(admission/refill run per host)")
@@ -153,16 +161,13 @@ def main() -> None:
     args = ap.parse_args()
     mesh = None
     if args.shards is not None:
-        if args.engine == "hnsw":
-            raise NotImplementedError(
-                "--shards with --engine hnsw: the sharded beam step is not "
-                "ported yet (ROADMAP Queue 1 item 3, slice 3.3)")
-        if args.hosts > 1 or args.mutations is not None:
-            raise NotImplementedError(
-                "--shards with --hosts > 1 or --mutations: the hosts axis "
-                "and a mutable view under a mesh are not ported yet "
-                "(ROADMAP Queue 1 item 3, slice 3.4)")
-        mesh = mesh_lib.make_search_mesh(args.shards, args.device)
+        shards = (args.shards
+                  or mesh_lib.make_search_mesh(0, args.device).sizes[0])
+        if (args.hosts > 1 and mesh_lib.device_capacity(args.device)
+                >= args.hosts * shards):
+            mesh = mesh_lib.make_serve_mesh(args.hosts, shards, args.device)
+        else:
+            mesh = mesh_lib.make_search_mesh(args.shards, args.device)
         print(f"[serve] serving on {mesh_lib.describe(mesh)}")
 
     device = torch.device(args.device)
@@ -192,20 +197,28 @@ def main() -> None:
         mutable = mutate.MutableIndex(index, capacity=cap)
         print(f"[serve] mutable index: delta capacity {cap}")
 
-    placed = dist.place_index(index, mesh) if mesh is not None else None
+    # a frozen index is placed once; a mutable view at every rebuild
+    placed = (dist.place_index(index, mesh)
+              if mesh is not None and mutable is None else index)
 
     def family_engine(idx, **kw):
+        """Engine over an (already placed, when sharded) index."""
+        if mesh is not None:
+            if args.engine == "hnsw":
+                return engines.sharded_hnsw_engine(idx, mesh, **kw)
+            return engines.sharded_ivf_engine(idx, mesh, **kw)
         if args.engine == "hnsw":
             return engines.hnsw_engine(idx, **kw)
         return engines.ivf_engine(idx, **kw)
 
     def build_engine(**kw):
-        if placed is not None:
-            return engines.sharded_ivf_engine(placed, mesh, **kw)
         if mutable is None:
-            return family_engine(index, **kw)
-        return engines.mutable_engine(family_engine(mutable.base, **kw),
-                                      mutable.delta)
+            return family_engine(placed, **kw)
+        view = mutable.view()
+        if mesh is not None:
+            view = dist.place_index(view, mesh)
+        return engines.mutable_engine(family_engine(view.base, **kw),
+                                      view.delta)
 
     darth = api.Darth(make_engine=build_engine,
                       engine=build_engine(**engine_kw))
@@ -252,7 +265,7 @@ def main() -> None:
     if mutable is not None:
         monitor = mutate.RecalibrationMonitor(
             mutable, darth, targets=targets,
-            threshold=args.recal_threshold, metrics=registry)
+            threshold=args.recal_threshold, mesh=mesh, metrics=registry)
         if registry is not None:
             mutable.attach_metrics(registry)
     frozen_gt = {}
@@ -263,7 +276,8 @@ def main() -> None:
         (MutableIndex.live_ground_truth)."""
         if mutable is not None:
             return torch.as_tensor(
-                mutable.live_ground_truth(ds.queries, args.k), device=device)
+                mutable.live_ground_truth(ds.queries, args.k, mesh=mesh),
+                device=device)
         if "gt" not in frozen_gt:
             frozen_gt["gt"] = training.ground_truth(
                 torch.as_tensor(ds.queries, device=device),
@@ -333,10 +347,16 @@ def main() -> None:
 
         def push_contents(update_base: bool) -> None:
             """Contents-only view refresh into the live server: delta
-            always, base only when tombstones changed."""
-            eng = mutate.refresh_view(
-                server.engine, base=mutable.base if update_base else None,
-                delta=mutable.delta)
+            always, base only when tombstones changed; on a mesh the
+            new components are placed first."""
+            base = mutable.base if update_base else None
+            if mesh is not None:
+                eng = server.engine._replace(index=dist.refresh_placed_view(
+                    server.engine.index, mesh, base=base,
+                    delta=mutable.delta))
+            else:
+                eng = mutate.refresh_view(server.engine, base=base,
+                                          delta=mutable.delta)
             darth.engine = eng
             server.set_engine(eng, contents_only=True)
 

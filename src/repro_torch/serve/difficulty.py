@@ -155,12 +155,15 @@ def _routing_points(index) -> np.ndarray:
     """The index's routing scan targets, copied to the host.
 
     IVF routes over centroids; HNSW over the uniform node sample
-    route_ids; a MutableIndexView routes with its base index (the delta
-    ring is scanned brute-force, it has no routing structure)."""
+    route_ids (a placed graph keeps their vectors); a MutableIndexView
+    routes with its base index (the delta ring is scanned brute-force,
+    it has no routing structure)."""
     if hasattr(index, "base") and hasattr(index, "delta"):
         return _routing_points(index.base)
     if hasattr(index, "centroids"):
         return index.centroids.cpu().numpy().astype(np.float32, copy=False)
+    if hasattr(index, "route_vecs"):     # a graph placed on a mesh
+        return index.route_vecs.cpu().numpy()
     if hasattr(index, "route_ids"):
         ids = index.route_ids.long()
         return index.vectors[ids].cpu().numpy().astype(np.float32)

@@ -30,13 +30,18 @@ boundary. The reference's "compiles at most once" becomes "one shape per
 whole call, free slots are initialised from zero queries and masked,
 and the batch never shrinks to the occupied slots.
 
-Sharded serving: with ``mesh`` (a ``launch.mesh.SearchMesh`` without a
-``"hosts"`` axis) the engine is ``engines.sharded_ivf_engine`` over an
-index placed on that mesh (``dist.place_index``); each probe step scans
-every shard and merges on the mesh's lead device, so the pool, the
-chunk inputs and the harvest stay there. A ``"hosts"`` axis, which
-splits the slot dim over host groups, is ROADMAP Queue 1 item 3, slice
-3.4, and raises. The server runs on the device of its engine's index.
+Sharded serving: with ``mesh`` (a ``launch.mesh.SearchMesh``) the
+engine is a sharded one (``engines.sharded_ivf_engine`` or
+``sharded_hnsw_engine``, bare or under ``mutable_engine``) over an index
+placed on that mesh (``dist.place_index``); each step scans every shard
+and merges on the lead device. On a serve mesh with a ``"hosts"`` axis
+of H groups that divide the slots (``dist.sharding.slot_sharding``),
+host group h's contiguous slot slice is stepped on that group's devices
+against its view of the global index (``dist.sharding.host_index``),
+and its per-slot state stays there between chunks; a chunk makes one
+``active`` fetch per distinct device. Per-slot state never crosses
+slots, so a query's result does not depend on which host group served
+it. Otherwise the server runs on the device of its engine's index.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import torch
 from repro_torch.core import darth_search, engines as engines_lib
 from repro_torch.core.intervals import IntervalParams
 from repro_torch.core.predictor import RecallPredictor
+from repro_torch.dist import sharding as sharding_lib
 from repro_torch.obs import stats as obs_stats
 from repro_torch.obs import trace as obs_trace
 
@@ -79,7 +85,7 @@ def _select_slots(mask: torch.Tensor, new: PyTree, old: PyTree) -> PyTree:
     b = mask.shape[0]
     if isinstance(old, torch.Tensor):
         if old.ndim >= 1 and old.shape[0] == b:
-            m = mask.reshape((b,) + (1,) * (old.ndim - 1))
+            m = mask.to(old.device).reshape((b,) + (1,) * (old.ndim - 1))
             return torch.where(m, new, old)
         return old
     if dataclasses.is_dataclass(old):
@@ -90,6 +96,41 @@ def _select_slots(mask: torch.Tensor, new: PyTree, old: PyTree) -> PyTree:
     if isinstance(old, tuple):
         return tuple(_select_slots(mask, n, o) for n, o in zip(new, old))
     return old
+
+
+def _cat_slots(parts: List[PyTree]) -> PyTree:
+    """Join per-group trees along the slot dim, on the first group's
+    device (leaves without a slot dim are taken from the first)."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        if first.ndim >= 1:
+            return torch.cat([p.to(first.device) for p in parts])
+        return first
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: _cat_slots([getattr(p, f.name) for p in parts])
+            for f in dataclasses.fields(first)})
+    if isinstance(first, tuple):
+        return tuple(_cat_slots(list(v)) for v in zip(*parts))
+    return first
+
+
+def _fetch(parts: List[torch.Tensor]) -> np.ndarray:
+    """Per-group device tensors joined on the host in group order, with
+    one device-to-host copy per distinct device."""
+    if len(parts) == 1:
+        return parts[0].cpu().numpy()
+    by_dev: Dict[torch.device, List[int]] = {}
+    for j, p in enumerate(parts):
+        by_dev.setdefault(p.device, []).append(j)
+    out: List[Optional[np.ndarray]] = [None] * len(parts)
+    for js in by_dev.values():
+        host = torch.cat([parts[j] for j in js]).cpu().numpy()
+        lo = 0
+        for j in js:
+            out[j] = host[lo:lo + parts[j].shape[0]]
+            lo += parts[j].shape[0]
+    return np.concatenate(out)
 
 
 @dataclasses.dataclass
@@ -631,16 +672,16 @@ class DarthServer:
                     f"DarthServer(mesh=...) takes a launch.mesh.SearchMesh, "
                     f"got {type(mesh).__name__}: no other mesh is ported "
                     f"(sharding, ROADMAP item 8)")
-            if "hosts" in mesh.axis_names:
-                raise NotImplementedError(
-                    "DarthServer(mesh=...) with a 'hosts' axis (the slot dim "
-                    "split over host groups) is not ported yet: ROADMAP "
-                    "Queue 1 item 3, slice 3.4")
-            if getattr(engine.index, "mesh", None) != mesh:
+            placed = getattr(engine.index, "base", engine.index)
+            if getattr(placed, "mesh", None) != mesh:
                 raise ValueError(
                     "DarthServer(mesh=...): the engine's index is not placed "
                     "on this mesh; serve dist.place_index(index, mesh) "
-                    "through engines.sharded_ivf_engine")
+                    "through a sharded engine")
+        self.mesh = mesh
+        # Host groups of the slot dim: one slice per group of a serve
+        # mesh's "hosts" axis, or one slice of every slot.
+        self._slot_groups = sharding_lib.slot_sharding(mesh, num_slots)
         self.engine = engine
         # Optional exact re-rank hook (index.residency.RerankStore.rerank
         # or compatible (q, ids) -> (d, i) callable), applied to every
@@ -682,13 +723,33 @@ class DarthServer:
         # serve in progress — lets on_boundary hooks stamp the trace
         # events they emit
         self.boundary_step = 0
-        # In-flight pool search state at the most recent chunk boundary
-        # (None outside serve / right after a swap), for on_boundary
-        # hooks that plan ahead of the engine. Device tensors; hooks
-        # fetch the small fields they need.
-        self.chunk_state = None
+        # In-flight pool (one (state, ring) per host group) at the most
+        # recent chunk boundary (None outside serve / right after a
+        # swap); chunk_state exposes its search state to on_boundary
+        # hooks that plan ahead of the engine.
+        self._chunk_pool = None
 
         self._build_chunks()
+        self._bind_groups()
+
+    @property
+    def chunk_state(self):
+        """The pool's search state at the most recent chunk boundary, all
+        slots (host groups joined on the lead device), or None. Device
+        tensors; hooks fetch the small fields they need."""
+        if self._chunk_pool is None:
+            return None
+        return _cat_slots([st for st, _ in self._chunk_pool])
+
+    def _bind_groups(self) -> None:
+        """Each host group's view of the engine's index (called from
+        __init__ and after every engine swap)."""
+        if len(self._slot_groups) == 1:
+            self._group_index = [self.engine.index]
+        else:
+            self._group_index = [
+                sharding_lib.host_index(self.engine.index, h)
+                for h in range(len(self._slot_groups))]
 
     def _build_chunks(self) -> None:
         """(Re)bind the chunk functions to the current engine and
@@ -767,6 +828,7 @@ class DarthServer:
         self.engine_epoch += 1
         if not contents_only:
             self._build_chunks()
+        self._bind_groups()
 
     def request_swap(self, engine: Optional[engines_lib.Engine] = None,
                      predictor: Optional[RecallPredictor] = None, *,
@@ -804,9 +866,26 @@ class DarthServer:
             self.set_predictor(predictor)
 
     # -- device placement ---------------------------------------------------
-    def _put(self, arr: np.ndarray) -> torch.Tensor:
-        """Per-chunk input onto the engine's index device: one copy."""
-        return torch.tensor(np.asarray(arr), device=self.engine.index.device)
+    def _put(self, arr: np.ndarray) -> List[torch.Tensor]:
+        """Per-chunk input [num_slots, ...] onto each host group's device,
+        cut to the group's slots: one copy per group."""
+        if len(self._slot_groups) == 1:
+            return [torch.tensor(np.asarray(arr),
+                                 device=self.engine.index.device)]
+        return sharding_lib.constrain_slots(torch.tensor(np.asarray(arr)),
+                                            self.mesh, self.num_slots)
+
+    def _init_pool(self, q, ipi, mpi) -> List[Tuple]:
+        """init_chunk per host group, on its view of the index."""
+        return [self._init_chunk(index, *parts) for index, parts in
+                zip(self._group_index, zip(q, ipi, mpi))]
+
+    @staticmethod
+    def _deactivate(pool: List[Tuple], occupied: List[torch.Tensor]
+                    ) -> List[Tuple]:
+        return [(dataclasses.replace(st, inner=engines_lib.set_active(
+            st.inner, st.inner.active & occ)), traj)
+            for (st, traj), occ in zip(pool, occupied)]
 
     def serve(self, queries: np.ndarray, r_targets: np.ndarray,
               max_engine_steps: int = 100_000,
@@ -847,7 +926,7 @@ class DarthServer:
                                kill_hosts or {}, on_boundary)
         finally:
             self._serving = False
-            self.chunk_state = None
+            self._chunk_pool = None
 
     def _serve(self, queries: np.ndarray, r_targets: np.ndarray,
                max_engine_steps: int, kill_hosts: Dict[int, int],
@@ -915,17 +994,18 @@ class DarthServer:
             the tracer additionally drains the early mask, predictor
             counts, and the trajectory ring AT THIS SAME boundary — no
             extra sync points."""
-            topk_d = self.engine.topk_d(st.inner).cpu().numpy()
-            topk_i = self.engine.topk_i(st.inner).cpu().numpy()
-            ndis = st.inner.ndis.cpu().numpy()
+            sts = [st for st, _ in pool]
+            topk_d = _fetch([self.engine.topk_d(st.inner) for st in sts])
+            topk_i = _fetch([self.engine.topk_i(st.inner) for st in sts])
+            ndis = _fetch([st.inner.ndis for st in sts])
             need_rp = (self.tiers is not None or tr is not None
                        or mets is not None)
-            r_pred = st.r_pred.cpu().numpy() if need_rp else None
+            r_pred = _fetch([st.r_pred for st in sts]) if need_rp else None
             obs = None
             if tr is not None:
-                obs = _ObsArrays(early=st.early.cpu().numpy(),
-                                 npred=st.npred.cpu().numpy(),
-                                 traj=traj.cpu().numpy(),
+                obs = _ObsArrays(early=_fetch([st.early for st in sts]),
+                                 npred=_fetch([st.npred for st in sts]),
+                                 traj=_fetch([traj for _, traj in pool]),
                                  traj_base=traj_base)
             return topk_d, topk_i, ndis, r_pred, obs
 
@@ -953,18 +1033,18 @@ class DarthServer:
         # change only when a refill admits queries.
         rt_dev, ipi_dev, mpi_dev = (self._put(a) for a in gather_inputs())
         traj_base = 0          # engine_steps at the ring's last rebuild
-        st, traj = self._init_chunk(self.engine.index, self._put(qb),
-                                    ipi_dev, mpi_dev)
+        # the pool: one (search state, trajectory ring) per host group
+        pool = self._init_pool(self._put(qb), ipi_dev, mpi_dev)
         # slots with no query: deactivate
         occupied = occupied_global()
-        st = dataclasses.replace(
-            st, inner=engines_lib.set_active(
-                st.inner, st.inner.active & self._put(occupied)))
+        pool = self._deactivate(pool, self._put(occupied))
 
         while True:
             t0 = time.perf_counter()
-            st, traj = self._run_chunk(self.engine.index, st, traj, rt_dev,
-                                       ipi_dev, mpi_dev)
+            pool = [self._run_chunk(index, st, traj, *inputs)
+                    for index, (st, traj), inputs in zip(
+                        self._group_index, pool,
+                        zip(rt_dev, ipi_dev, mpi_dev))]
             stats.engine_steps += self.steps_per_sync
             for hl in hostslots:
                 hl.stats.slot_steps += (self.steps_per_sync
@@ -973,7 +1053,7 @@ class DarthServer:
             dying = [hl for hl in hostslots
                      if hl.alive and hl.host in kill_hosts
                      and stats.engine_steps >= kill_hosts[hl.host]]
-            active = st.inner.active.cpu().numpy()
+            active = _fetch([st.inner.active for st, _ in pool])
             # chunk wall time: dispatch + the sync-boundary fetch that
             # forces the device round-trip
             chunk_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1009,7 +1089,7 @@ class DarthServer:
             # slot is in flight, so every admitted query runs start to
             # finish against one index version (its admission epoch)
             self.boundary_step = stats.engine_steps
-            self.chunk_state = st
+            self._chunk_pool = pool
             if on_boundary is not None:
                 swap_was_pending = self._pending_swap is not None
                 on_boundary(self)
@@ -1027,9 +1107,8 @@ class DarthServer:
                 # chunk state was built against the OLD index (shapes
                 # may differ — e.g. HNSW visited rows grow with the
                 # graph); force a full init rebuild at the refill
-                st = None
-                self.chunk_state = None
-                traj = None
+                pool = None
+                self._chunk_pool = None
                 changed = False
                 occupied = occupied_global()
             # per-host refill — unless the step budget is already
@@ -1065,10 +1144,9 @@ class DarthServer:
                 if mask.any():
                     rt_dev, ipi_dev, mpi_dev = (self._put(a)
                                                 for a in gather_inputs())
-                    fresh = self._init_chunk(self.engine.index,
-                                             self._put(qb2), ipi_dev,
-                                             mpi_dev)
-                    # after a drained swap st is None (old chunk state
+                    fresh = self._init_pool(self._put(qb2), ipi_dev,
+                                            mpi_dev)
+                    # after a drained swap pool is None (old chunk state
                     # discarded): the pool is empty, so the fresh init
                     # IS the chunk state — no splice needed. fresh is
                     # (state, ring) and the splice selects both per slot
@@ -1077,14 +1155,14 @@ class DarthServer:
                     # full rebuild the ring's column origin moves to the
                     # current step (traj_base) since state.steps restarts
                     # at 0.
-                    if st is None:
-                        st, traj = fresh
+                    if pool is None:
+                        pool = fresh
                         traj_base = stats.engine_steps
                     else:
-                        st, traj = _select_slots(self._put(mask), fresh,
-                                                 (st, traj))
+                        pool = [_select_slots(m, new, old) for m, new, old
+                                in zip(self._put(mask), fresh, pool)]
                     changed = True
-            if st is None:
+            if pool is None:
                 # a swap drained the pool and the refill admitted
                 # nothing (budget exhausted, or the only pending
                 # queries sit on dead hosts): there is no chunk state
@@ -1093,9 +1171,7 @@ class DarthServer:
             if changed:
                 # deactivate empty (and dead-host) slots
                 occupied = occupied_global()
-                st = dataclasses.replace(
-                    st, inner=engines_lib.set_active(
-                        st.inner, st.inner.active & self._put(occupied)))
+                pool = self._deactivate(pool, self._put(occupied))
             if (not occupied.any()
                     and not any(hl.pending for hl in hostslots)):
                 break

@@ -691,3 +691,99 @@ def test_sharded_probe_step_on_the_card_equals_probe_step(dev, shards,
                      "active"):
             assert torch.equal(getattr(s1, name), getattr(s2, name)), \
                 (t, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [0, 4096])
+@pytest.mark.parametrize("shards", [1, 2, 4, 7])
+def test_sharded_beam_step_on_the_card_equals_beam_step(dev, shards, width):
+    """Per step, on float data, the sharded beam step over a placed graph
+    (every shard on cuda:0) equals hnsw.beam_step in every field, bit for
+    bit, with the exact bitmap and the hashed filter (S = 7 does not
+    divide a power-of-two width and must raise); a third of the queries
+    stop at step 4. Each shard's gather keeps beam_step's [B, M, D]
+    shape, so its product rounds alike."""
+    from repro_torch import dist
+    from repro_torch.core import engines
+    from repro_torch.dist import collectives
+    from repro_torch.index import hnsw
+    from repro_torch.launch import mesh as mesh_lib
+    rng = np.random.default_rng(11)
+    centers = rng.normal(size=(32, 48)) * 4
+    x = (centers[rng.integers(0, 32, 20_001)]
+         + rng.normal(size=(20_001, 48))).astype(np.float32)
+    qn = (centers[rng.integers(0, 32, 200)]
+          + rng.normal(size=(200, 48))).astype(np.float32)
+    graph = hnsw.build(x, m=12, ef_construction=32, passes=1, seed=0,
+                       device=dev)
+    mesh = mesh_lib.make_search_mesh(shards, "cuda:0")
+    placed = dist.place_index(graph, mesh)
+    init = collectives.make_sharded_hnsw_init(mesh)
+    step = collectives.make_sharded_beam_step(mesh)
+    q = torch.as_tensor(qn, device=dev)
+    if width % shards:
+        with pytest.raises(ValueError, match="not divisible"):
+            init(placed, q, ef=64, visited_width=width)
+        return
+    s1 = hnsw.init_state(graph, q, ef=64, visited_width=width)
+    s2 = init(placed, q, ef=64, visited_width=width)
+    stop = torch.as_tensor(np.arange(200) % 3 == 0, device=dev)
+    fields = ("cand_d", "cand_i", "cand_exp", "first_nn", "active", "ndis",
+              "ninserts", "nstep")
+    t = 0
+    while bool(s1.active.any()):
+        if t == 4:
+            s1 = engines.set_active(s1, s1.active & ~stop)
+            s2 = engines.set_active(s2, s2.active & ~stop)
+        s1 = hnsw.beam_step(graph, s1, k=10)
+        s2 = step(placed, s2, k=10)
+        for name in fields:
+            assert torch.equal(getattr(s1, name), getattr(s2, name)), \
+                (t, name)
+        t += 1
+    assert t > 20 and not s2.active.any()
+    vis = torch.cat(s2.visited, 1)
+    assert torch.equal(vis[:, :s1.visited.shape[1]], s1.visited)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ivf", "hnsw"])
+def test_placed_mutable_view_on_the_card_equals_its_engine(dev, kind):
+    """After a burst, plain_search through mutable_engine over the view
+    placed at 3 shards on cuda:0 equals the unsharded mutable engine's,
+    bit for bit, and returns no deleted id."""
+    from repro_torch import dist, mutate
+    from repro_torch.core import darth_search, engines
+    from repro_torch.data import vectors
+    from repro_torch.index import hnsw, ivf
+    from repro_torch.launch import mesh as mesh_lib
+    ds = vectors.make_dataset(n=20_000, d=32, num_learn=10, num_queries=200,
+                              clusters=64, seed=0)
+    if kind == "ivf":
+        base = ivf.build(ds.base, nlist=64, seed=0, device=dev)
+        kw = dict(k=10, nprobe=16)
+    else:
+        base = hnsw.build(ds.base, m=12, ef_construction=32, passes=1,
+                          seed=0, device=dev)
+        kw = dict(k=10, ef=64)
+    mut = mutate.MutableIndex(base, capacity=1024)
+    mut.apply(vectors.mutation_stream(ds, 0.05, 0.02, drift=0.3, steps=4,
+                                      seed=1))
+    mesh = mesh_lib.make_search_mesh(3, "cuda:0")
+    view = dist.place_index(mut.view(), mesh)
+    if kind == "ivf":
+        single = engines.ivf_engine(mut.base, **kw)
+        sharded = engines.sharded_ivf_engine(view.base, mesh, **kw)
+    else:
+        single = engines.hnsw_engine(mut.base, **kw)
+        sharded = engines.sharded_hnsw_engine(view.base, mesh, **kw)
+    single = engines.mutable_engine(single, mut.delta)
+    sharded = engines.mutable_engine(sharded, view.delta)
+    q = torch.as_tensor(ds.queries, device=dev)
+    s1 = darth_search.plain_search(single, q)
+    s2 = darth_search.plain_search(sharded, q)
+    assert torch.equal(single.topk_i(s1), sharded.topk_i(s2))
+    assert torch.equal(single.topk_d(s1), sharded.topk_d(s2))
+    assert torch.equal(s1.ndis, s2.ndis)
+    dead = torch.as_tensor(mut.deleted_ids, device=dev)
+    assert not torch.isin(sharded.topk_i(s2), dead).any()

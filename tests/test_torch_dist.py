@@ -78,9 +78,12 @@ def test_mesh_refuses_too_few_cards(monkeypatch, count, shards, device):
 
 
 def test_serve_mesh_over_hosts_raises():
-    with pytest.raises(NotImplementedError, match="slice 3.4"):
-        mesh_lib.make_serve_mesh(2, 1, "cpu")
-    assert mesh_lib.make_serve_mesh(1, 2, "cpu") == cpu_mesh(2)
+    """A serve mesh over hosts, once refused, is the ("hosts", "model")
+    mesh; a mesh whose devices do not fill its sizes still raises."""
+    mesh = mesh_lib.make_serve_mesh(2, 1, "cpu")
+    assert mesh.axis_names == ("hosts", "model") and mesh.sizes == (2, 1)
+    assert mesh.host(1) == cpu_mesh(1)
+    assert mesh_lib.make_serve_mesh(1, 2, "cpu").host(0) == cpu_mesh(2)
     with pytest.raises(ValueError):
         mesh_lib.SearchMesh(("model",), (2,), (torch.device("cpu"),))
 
@@ -122,18 +125,21 @@ def test_place_index_pads_and_splits_the_cap(shards, quantize):
 
 
 def test_place_index_refuses_what_is_not_ported():
+    """A mutable view, an HNSW graph and a hosts mesh, once refused, are
+    placed; what is not an index still raises TypeError."""
     x, _ = _int_data(n=300)
     index = ivf.build(x, nlist=4, seed=0, device="cpu")
-    view = mutate.MutableIndex(index, capacity=16).view()
-    with pytest.raises(NotImplementedError, match="slice 3.4"):
-        dist.place_index(view, cpu_mesh(2))
+    mut = mutate.MutableIndex(index, capacity=16)
+    view = dist.place_index(mut.view(), cpu_mesh(2))
+    assert view.base.num_shards == 2 and view.delta.ids is mut.delta.ids
     graph = hnsw.build(x, m=4, ef_construction=8, passes=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3.3"):
-        dist.place_index(graph, cpu_mesh(2))
+    placed = dist.place_index(graph, cpu_mesh(2))
+    assert placed.num_vectors == 300 and placed.num_shards == 2
     hosts = mesh_lib.SearchMesh(("hosts", "model"), (1, 2),
                                 (torch.device("cpu"),) * 2)
-    with pytest.raises(NotImplementedError, match="slice 3.4"):
-        dist.place_index(index, hosts)
+    assert dist.place_index(index, hosts).mesh == hosts
+    with pytest.raises(TypeError, match="place_index takes"):
+        dist.place_index(x, cpu_mesh(2))
 
 
 # -- sharded flat search -----------------------------------------------------
@@ -385,13 +391,25 @@ def test_server_over_a_mesh_equals_single_device(carried, shards):
 
 
 def test_server_refuses_a_hosts_mesh_or_an_unplaced_index(carried):
-    _, index, trained, _, _, _ = carried
+    """A hosts mesh, once refused, serves an index placed on it (equal
+    per query to the single-controller server); an index not placed on
+    the server's mesh still raises."""
+    _, index, trained, _, _, q = carried
     sharded, mesh = _sharded_darth(index, trained, 2)
     args = (sharded.engine, trained.predictor, sharded.interval_for_target)
     hosts = mesh_lib.SearchMesh(("hosts", "model"), (2, 1),
                                 (torch.device("cpu"),) * 2)
-    with pytest.raises(NotImplementedError, match="slice 3.4"):
+    with pytest.raises(ValueError, match="not placed"):
         DarthServer(*args, mesh=hosts)
+    on_hosts = api.Darth(make_engine=None, trained=trained,
+                         engine=engines.sharded_ivf_engine(
+                             dist.place_index(index, hosts), hosts, k=K,
+                             nprobe=NLIST))
+    rts = _mixed(q.shape[0])
+    res_h, _ = _serve(on_hosts, q, rts, mesh=hosts, hosts=2)
+    res_1, _ = _serve(sharded, q, rts, mesh=mesh)
+    for a, b in zip(res_1, res_h):
+        np.testing.assert_array_equal(b[1], a[1])
     with pytest.raises(ValueError, match="not placed"):
         DarthServer(*args, mesh=cpu_mesh(3))
     single = engines.ivf_engine(index, k=K, nprobe=NLIST)
@@ -430,8 +448,20 @@ def test_launcher_shards_end_to_end(monkeypatch, capsys):
 
 @pytest.mark.parametrize("extra,piece", [
     (["--engine", "hnsw"], "slice 3.3"), (["--hosts", "2"], "slice 3.4"),
-    (["--mutations", "0.2,0.1"], "slice 3.4")])
+    (["--mutations", "0.2,0.1", "--online-compact"], "slice 3.4")])
 def test_launcher_shards_refuses_what_is_not_ported(monkeypatch, capsys,
                                                     extra, piece):
-    with pytest.raises(NotImplementedError, match=piece):
-        _launch(monkeypatch, capsys, ["--shards", "2"] + extra)
+    """--shards 2 with --engine hnsw, --hosts 2 or --mutations (online
+    compaction), each once refused and ported by ROADMAP's ``piece``,
+    gives the unsharded run's recall per target in every phase, on the
+    mesh it prints (the hosts axis at --hosts 2)."""
+    plain = _launch(monkeypatch, capsys, extra)
+    sharded = _launch(monkeypatch, capsys, ["--shards", "2"] + extra)
+    mesh = "mesh(2, 2)" if "--hosts" in extra else "mesh(2,)"
+    assert any(mesh in line for line in sharded), piece
+
+    def recalls(lines):
+        return [line.split(": ", 1)[1] for line in lines
+                if "mean recall" in line]
+    assert len(recalls(sharded)) >= 3, piece
+    assert recalls(sharded) == recalls(plain), piece
