@@ -128,7 +128,17 @@ Phases, each fatal on failure:
               the ``darth_cold_*`` metrics. A ``[cold] FLAG`` line (not
               fatal) says when plan + prefetch recalls less than static.
               With ``--cold-repeat`` phase 8 runs twice and prints whether
-              its serves repeat (not fatal).
+              its serves repeat (not fatal). [cold-shard]: the plan +
+              prefetch serve again, traced, on one device (its counters
+              equal to the row above), then with the tier's store placed
+              at 2 and 4 shards on cuda:0 and on the 2 x 2 serve mesh, the
+              tier staging into every shard: 0 queries may differ in ids,
+              ndis, npred or terminal reason, and the prefetch, eviction
+              and miss counts must be equal; staging ms per boundary
+              (mean, max) beside phase 8's. Past COLD_SHARD_CUT_AT s of the
+              script only 2 shards run (a CUT line). Then bucket_probe on
+              shard 0 of the 4-shard staged store against its plain
+              version.
 9. sharded:   the sharded IVF path on phase 2's index and Darth at 1, 2,
               4 and 7 shards, all on cuda:0 (7 divides neither the cap
               nor N, so both pad): ``dist.place_index`` (seconds, bytes
@@ -170,6 +180,14 @@ Phases, each fatal on failure:
               size (30,000 x 32, nlist 128), which prints its table; each
               target's recall must reach target - 0.03 and every kernel
               must have run.
+11. audit:    the port's static gate (``repro_torch.analysis``) on the
+              card: ``run_gate("cuda")`` with zero findings (every
+              kernel must have run in it), the known-bad corpus detected,
+              and the serving loop's host syncs on the card (by the
+              recorder and by ``torch.cuda.set_sync_debug_mode``) equal to
+              the CPU's per call site and in total, with no nvcc after the
+              first chunk; then each kernel at the gate's shapes against
+              its plain version.
 
 Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -191,7 +209,8 @@ empty kernel's time (``launch_floor_ms`` by events, and
 It imports nothing of JAX or of the ``repro`` package. Output: JSON lines
 of each path's results and of per-kernel results (``launches`` summed
 over the paths, ``launches_by_path`` split: ivf, hnsw, serve, mutate,
-competitors, cold, sharded, quickstart), each phase's wall time, the card's name and power
+competitors, cold, cold_shard, sharded, quickstart, audit), each phase's
+wall time, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Full
 results also go to ``results/chip_smoke.json``. Without a CUDA card, or
 without the repository around it, it exits non-zero and prints no result.
@@ -258,6 +277,11 @@ SHARD_HNSW_Q = 256
 SHARD_HASH_W = 1 << 18
 SHARD_HASH_COUNTS = (1, 2, 4)
 SHARD_MUT_COUNTS = (2, 7)
+# Phase 8's [cold-shard] check: the plan + prefetch serve at these shard
+# counts on cuda:0 and on the 2 x 2 serve mesh; past COLD_SHARD_CUT_AT
+# seconds of the script it runs at 2 shards only (a CUT line says so).
+COLD_SHARD_COUNTS = (2, 4)
+COLD_SHARD_CUT_AT = 800.0
 SHARD_CUTS = (
     "the sharded HNSW checks use the first 256 of the 1,000 test queries "
     "(each runs the 750,000-row graph at ef 384 to natural termination, "
@@ -1708,6 +1732,279 @@ def cold_path(ds, index, darth, gt, served, r_targets, tol, card):
     return out, launches, failures, {"bucket_probe": [row]}
 
 
+def cold_shard_path(ds, index, darth, r_targets, phase8, tol, card):
+    """Phase 8's [cold-shard] check: phase 8's plan + prefetch serve (all
+    test queries, COLD_SLOTS of nlist buckets resident, lookahead 4,
+    staging 8, SERVE_SLOTS slots, SERVE_SPS steps a chunk) with the
+    tier's store placed at COLD_SHARD_COUNTS shards on cuda:0 and on the
+    2 x 2 serve mesh (one host loop, as phase 8 serves), the tier staging
+    into every shard's slice. A traced single-device run of the same
+    mode (its counters equal to phase 8's row) is the per-query
+    reference: every run must serve 0 queries that differ in ids,
+    ``ndis``, ``npred`` or terminal reason, with equal prefetch, eviction
+    and miss counts. The counts are zeroed after the reference and read
+    after the last run; then bucket_probe on shard 0 of the last
+    4-shard staged store at the cold chunk's shape, against its plain
+    version. Returns (results, launches by kernel, failures, {kernel:
+    [shape rows]})."""
+    import types
+
+    import numpy as np
+    import torch
+    from repro_torch import dist
+    from repro_torch.core import engines
+    from repro_torch.core.padding import pad_dists, pad_ids
+    from repro_torch.dist import sharding
+    from repro_torch.index import ivf
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import DarthServer, cold
+    dev = index.device
+    nlist = index.nlist
+    hot = min(COLD_SLOTS, nlist // 4)
+    counts = COLD_SHARD_COUNTS
+    out = {"card": card, "hot_slots": hot, "runs": {}}
+    failures = []
+    if time.time() - T_START > COLD_SHARD_CUT_AT:
+        counts = counts[:1]
+        out["cut"] = (f"[cold-shard] at {counts[0]} shards only: the script "
+                      f"passed {COLD_SHARD_CUT_AT:.0f} s before phase 8's "
+                      f"sharded check")
+        print(f"[cold-shard] CUT {out['cut']}", flush=True)
+    t_start = time.time()
+
+    def serve(name, mesh=None):
+        tier = cold.make_cold_tier(index, hot_slots=hot,
+                                   lookahead=COLD_LOOKAHEAD,
+                                   staging=COLD_STAGING)
+        store = tier.plan(ds.queries, nprobe=nlist, first=COLD_FIRST)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if mesh is None:
+            eng = engines.ivf_engine(store, k=10, nprobe=nlist)
+        else:
+            store = dist.place_index(store, mesh)
+            eng = engines.sharded_ivf_engine(store, mesh, k=10,
+                                             nprobe=nlist)
+        torch.cuda.synchronize()
+        place_s = time.time() - t0
+        tracer = Tracer()
+        srv = DarthServer(eng, darth.trained.predictor,
+                          darth.interval_for_target, num_slots=SERVE_SLOTS,
+                          steps_per_sync=SERVE_SPS, tracer=tracer, mesh=mesh)
+        t0 = time.time()
+        res, stats = srv.serve(ds.queries, r_targets,
+                               on_boundary=tier.on_boundary)
+        torch.cuda.synchronize()
+        row = serve_row(res, stats, time.time() - t0, tracer)
+        stage = [1e3 * v for v in tier.stage_seconds]
+        row.update(
+            mesh=None if mesh is None else mesh_lib.describe(mesh),
+            groups=len(srv._group_index), place_s=place_s,
+            prefetches=tier.prefetches, evictions=tier.evictions,
+            misses=tier.misses, staged_boundaries=len(stage),
+            stage_ms_mean=float(np.mean(stage)) if stage else None,
+            stage_ms_max=max(stage) if stage else None,
+            placed_store=isinstance(tier.store, sharding.PlacedIVFIndex))
+        return res, tracer.terminals(), row, tier
+
+    ref_res, ref_terms, ref_row, _ = serve("single_device")
+    keys = ("prefetches", "evictions", "misses", "engine_steps",
+            "ndis_harvested", "refills", "completed")
+    ref_row["equal_to_phase8"] = {k: ref_row[k] == phase8[k] for k in keys}
+    out["runs"]["single_device"] = ref_row
+    print(f"[cold-shard] single_device {ref_row}", flush=True)
+    if not all(ref_row["equal_to_phase8"].values()):
+        failures.append(f"cold-shard: the traced single-device run differs "
+                        f"from phase 8's: {ref_row['equal_to_phase8']}")
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    meshes = [(f"{s}_shards", mesh_lib.make_search_mesh(s, dev))
+              for s in counts]
+    meshes.append(("mesh_2x2", mesh_lib.make_serve_mesh(2, 2, dev)))
+    tier = None
+    for name, mesh in meshes:
+        res, terms, row, tier_run = serve(name, mesh)
+        if name == f"{counts[-1]}_shards":
+            tier = tier_run
+        row["differ"] = {
+            "ids": sum(not np.array_equal(a[1], b[1])
+                       for a, b in zip(res, ref_res)),
+            "ndis": sum(terms[i].attrs["ndis"] != ref_terms[i].attrs["ndis"]
+                        for i in ref_terms),
+            "decisions": sum(
+                (terms[i].attrs.get("npred"), terms[i].attrs["reason"])
+                != (ref_terms[i].attrs.get("npred"),
+                    ref_terms[i].attrs["reason"]) for i in ref_terms),
+            "counts": [k for k in ("prefetches", "evictions", "misses")
+                       if row[k] != ref_row[k]]}
+        row["phase8_stage_ms"] = [phase8["stage_ms_mean"],
+                                  phase8["stage_ms_max"]]
+        out["runs"][name] = row
+        print(f"[cold-shard] {name} {row}", flush=True)
+        if any(row["differ"].values()) or not row["placed_store"] or \
+                row["completed"] != len(ref_res):
+            failures.append(f"cold-shard {name} differs from the "
+                            f"single-device serve: {row['differ']}")
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    out["launches"] = launches
+    print(f"[cold-shard] launches {launches}", flush=True)
+    # the served path's kernels (its centroid ranking is no l2_topk call)
+    for name in ("bucket_probe", "gbdt_predict"):
+        if launches[name] < 1:
+            failures.append(f"kernel {name} was not launched on the "
+                            f"sharded cold path")
+    out["wall_s"] = time.time() - t_start
+    if failures:
+        return out, launches, failures, {}
+
+    # bucket_probe on shard 0 of the last staged placed store, at the cold
+    # chunk's shape (the pool's queries at their first probe, every fourth
+    # slot free, cold buckets masked out as the sharded step masks them).
+    store = tier.store
+    q = torch.as_tensor(ds.queries[:SERVE_SLOTS], device=dev)
+    st = ivf.init_state(store, q, k=10, nprobe=nlist)
+    slot = store.hot_map[st.probe_order[:, 0].long()]
+    free = torch.arange(SERVE_SLOTS, device=dev) % 4 == 3
+    act = (slot >= 0) & ~free
+    slot = slot.clamp_min(0).to(torch.int32).contiguous()
+    shard = types.SimpleNamespace(cap=store.bucket_vecs[0].shape[1],
+                                  bucket_vecs=store.bucket_vecs[0],
+                                  bucket_ids=store.bucket_ids[0])
+    args = (st.q, store.bucket_vecs[0], store.bucket_sqnorm[0],
+            store.bucket_ids[0], slot, act, st.qsq,
+            st.topk_d[:, -1:].contiguous(),
+            pad_dists((SERVE_SLOTS, 10), dev),
+            pad_ids((SERVE_SLOTS, 10), dev))
+    case = (f"sharded cold chunk step, shard 0 of {counts[-1]}, "
+            f"{hot}-slot store")
+    row, ok = shape_row_probe(case, shard, args, tol,
+                              launches["bucket_probe"])
+    row["shape"] = (f"B={SERVE_SLOTS} store[{hot},{shard.cap},"
+                    f"{index.dim}] f32 k=10")
+    print(f"[cold-shard] bucket_probe {row}", flush=True)
+    if not ok:
+        failures.append(f"bucket_probe disagrees with plain at {case}")
+    out["wall_s"] = time.time() - t_start
+    return out, launches, failures, {"bucket_probe": [row]}
+
+
+def audit_path(card, device="cuda"):
+    """Phase 11: the port's static gate on the card. ``run_gate("cuda")``
+    (the pad lint over the tree, then every registered entry point at its
+    small and large sizes on this card) must give zero findings, the
+    known-bad corpus must be detected (``run_selftest``), and the serving
+    loop's host syncs, counted by the recorder and by PyTorch under
+    ``torch.cuda.set_sync_debug_mode("warn")``, must equal the CPU's per
+    call site and in total, with no kernel build after the first chunk.
+    The counts are zeroed before the gate and read after it; then
+    l2_topk, bucket_probe and gbdt_predict at the gate's own shapes (its
+    int8 l2_topk and SQ8 bucket_probe entries, its predictor on a chunk
+    of 8 slots), against their plain versions. Returns (results,
+    launches by kernel, failures, {kernel: [shape rows]})."""
+    import torch
+    from repro_torch.analysis import manifest, runner
+    from repro_torch.analysis.__main__ import run_selftest
+    from repro_torch.analysis.findings import format_findings
+    from repro_torch.core.padding import pad_dists, pad_ids
+    from repro_torch.kernels import cuda, ref
+    from repro_torch.analysis.audits import one_device
+    dev = one_device(device)
+    out = {"card": card}
+    failures = []
+    t_start = time.time()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    findings = runner.run_gate(dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    out.update(gate_s=time.time() - t_start, findings=len(findings),
+               launches=launches)
+    print(f"[audit] gate: {len(findings)} finding(s) in "
+          f"{out['gate_s']:.1f}s, launches {launches}", flush=True)
+    if findings:
+        print(format_findings(findings), flush=True)
+        failures.append(f"audit: {len(findings)} finding(s)")
+    t0 = time.time()
+    errors = run_selftest(dev)
+    out.update(selftest_s=time.time() - t0, selftest_errors=errors)
+    if errors:
+        failures.append(f"audit: selftest {errors}")
+    t0 = time.time()
+    cpu = manifest.sync_loop_counts("cpu")
+    card_counts = manifest.sync_loop_counts(dev, sync_debug=True)
+    out["sync_s"] = time.time() - t0
+    out["syncs"] = {}
+    for name, row in cpu.items():
+        got = card_counts[name]
+        cmp = {"cpu_total": row["total"], "card_total": got["total"],
+               "card_debug_total": got["debug_total"],
+               "chunks": [row["chunks"], got["chunks"]],
+               "sites_equal": row["sites"] == got["sites"]
+               == got["debug_sites"] == manifest.SYNC_LIMITS[name],
+               "nvcc_after_first_chunk": got["nvcc_after_first_chunk"],
+               "sites": got["debug_sites"]}
+        out["syncs"][name] = cmp
+        print(f"[audit] syncs {name} {cmp}", flush=True)
+        if not (cmp["sites_equal"] and row["total"] == got["total"]
+                == got["debug_total"]) or got["nvcc_after_first_chunk"]:
+            failures.append(f"audit: the card's host syncs differ from the "
+                            f"CPU's in {name}: {cmp}")
+    for name, n in launches.items():
+        if n < 1:
+            failures.append(f"kernel {name} was not launched by the gate")
+
+    # Each kernel at the gate's shapes, against its plain version.
+    shapes = {}
+    n, d = manifest.SIZES["small"]
+    index = manifest._make_ivf(n, d, dev, sq8=True)
+    q = manifest._queries(d, dev)
+    codes = index.bucket_vecs.reshape(-1, d)
+    keep = index.bucket_ids.reshape(-1) >= 0
+    codes, sqn = codes[keep].contiguous(), index.bucket_sqnorm.reshape(-1)[
+        keep].contiguous()
+    qe = (q * index.scale).contiguous()
+    d_k, i_k = cuda.l2_topk(qe, codes, sqn, 10)
+    d_r, i_r = ref.l2_topk_ref(qe, codes, sqn, 10)
+    ltol = 1e-3 + 1e-5 * float(sqn.max())
+    err, agree, ok = topk_agreement(d_k, i_k, d_r, i_r, ltol)
+    row = shape_row_l2("gate entry kernels/l2_topk, int8 codes", qe, codes,
+                       sqn, 10, launches["l2_topk"], 20)
+    row.update(max_abs_err=err, id_agreement=agree, tol=ltol)
+    shapes["l2_topk"] = [row]
+    print(f"[audit] l2_topk {row}", flush=True)
+    if not ok:
+        failures.append("l2_topk disagrees with plain at the gate's shape")
+    b = q.shape[0]
+    slot = torch.arange(b, device=dev, dtype=torch.int32)
+    args = (qe, index.bucket_vecs, index.bucket_sqnorm, index.bucket_ids,
+            slot, torch.ones((b,), dtype=torch.bool, device=dev),
+            (q * q).sum(1, keepdim=True), pad_dists((b, 1), dev),
+            pad_dists((b, 10), dev), pad_ids((b, 10), dev))
+    row, ok = shape_row_probe("gate entry kernels/bucket_probe, SQ8 store",
+                              index, args, ltol, launches["bucket_probe"])
+    shapes["bucket_probe"] = [row]
+    print(f"[audit] bucket_probe {row}", flush=True)
+    if not ok:
+        failures.append("bucket_probe disagrees with plain at the gate's "
+                        "shape")
+    p = manifest._predictor(dev).params
+    feats = torch.rand((b, 11), generator=torch.Generator().manual_seed(0)
+                       ).to(dev)
+    row = shape_row_gbdt("gate serve chunk, 8 slots", feats, p,
+                         launches["gbdt_predict"])
+    shapes["gbdt_predict"] = [row]
+    print(f"[audit] gbdt_predict {row}", flush=True)
+    if row["max_abs_err"] > 1e-5:
+        failures.append("gbdt_predict disagrees with plain at the gate's "
+                        "shape")
+    out["wall_s"] = time.time() - t_start
+    print(f"[audit] phase 11 took {out['wall_s']:.1f}s", flush=True)
+    return out, launches, failures, shapes
+
+
 def sharded_path(ds, index, darth, results, served, r_targets, gt, tol,
                  card, hnsw_fitted):
     """Phase 9: the sharded IVF path on phase 2's index and Darth, for
@@ -2836,6 +3133,12 @@ def main() -> int:
             for a, b in row.values())
         print(f"[cold] repeat in this call: equal "
               f"{cold_out['repeat_equal']} {cold_out['repeat']}", flush=True)
+    cshard_out, cshard_launches, failures, cshard_shapes = cold_shard_path(
+        ds, index, darth, serve_targets, cold_out["serves"][
+            "all_plan_prefetch"], btol, card)
+    if failures:
+        return fail("; ".join(failures))
+    print(f"[cold-shard] took {cshard_out['wall_s']:.1f}s", flush=True)
     served_h1 = served["ivf_f32_hosts1"][0]
     del served
     phase_done("8 cold")
@@ -2853,11 +3156,17 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     phase_done("10 quickstart")
+    # -- 11. audit ----------------------------------------------------------
+    audit_out, audit_launches, failures, audit_shapes = audit_path(card)
+    if failures:
+        return fail("; ".join(failures))
+    phase_done("11 audit")
     print(f"[main] phase wall s {walls}", flush=True)
 
     extra_shapes = {name: [] for name in _build.KERNELS}
     for shapes in (serve_out["kernel_shapes"], {"l2_topk": delta_rows},
-                   compete_shapes, cold_shapes, shard_shapes):
+                   compete_shapes, cold_shapes, cshard_shapes, shard_shapes,
+                   audit_shapes):
         for name, rows in shapes.items():
             extra_shapes[name] += rows
     for row in kernels:
@@ -2871,8 +3180,10 @@ def main() -> int:
                    "mutate": mutate_launches[row["name"]],
                    "competitors": compete_launches[row["name"]],
                    "cold": cold_launches[row["name"]],
+                   "cold_shard": cshard_launches[row["name"]],
                    "sharded": shard_launches[row["name"]],
-                   "quickstart": quick_launches[row["name"]]}
+                   "quickstart": quick_launches[row["name"]],
+                   "audit": audit_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
@@ -2882,14 +3193,17 @@ def main() -> int:
            "main_path": main, "hnsw_path": hnsw_out,
            "serve_path": serve_out, "mutate_path": mutate_out,
            "competitors_path": compete_out, "cold_path": cold_out,
-           "sharded_path": shard_out, "quickstart_path": quick_out,
+           "cold_shard_path": cshard_out, "sharded_path": shard_out,
+           "quickstart_path": quick_out, "audit_path": audit_out,
            "kernels": kernels, "launches": launches,
            "hnsw_launches": hnsw_launches, "serve_launches": serve_launches,
            "mutate_launches": mutate_launches,
            "competitors_launches": compete_launches,
            "cold_launches": cold_launches,
+           "cold_shard_launches": cshard_launches,
            "sharded_launches": shard_launches,
-           "quickstart_launches": quick_launches}
+           "quickstart_launches": quick_launches,
+           "audit_launches": audit_launches}
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
     with open(os.path.join(HERE, "results", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1, default=float)
@@ -2899,8 +3213,10 @@ def main() -> int:
     print(json.dumps({"mutate_path": mutate_out}, default=float))
     print(json.dumps({"competitors_path": compete_out}, default=float))
     print(json.dumps({"cold_path": cold_out}, default=float))
+    print(json.dumps({"cold_shard_path": cshard_out}, default=float))
     print(json.dumps({"sharded_path": shard_out}, default=float))
     print(json.dumps({"quickstart_path": quick_out}, default=float))
+    print(json.dumps({"audit_path": audit_out}, default=float))
     print(json.dumps({"kernels": kernels}, default=float))
     print(f"[main] chip_smoke.py took {time.time() - T_START:.1f}s",
           flush=True)

@@ -86,14 +86,18 @@ def quantize_hnsw(index: hnsw_lib.HNSWIndex) -> hnsw_lib.HNSWIndex:
 def resident_bytes(index: AnyIndex) -> Dict[str, int]:
     """Per-array device-resident bytes of an index view, plus "total":
     ``prod(shape) * itemsize`` of every tensor field, as the reference
-    counts them."""
+    counts them. A placed index's sharded field (a tuple of per-shard
+    tensors) counts as the sum of its shards, as the reference counts a
+    sharded global array."""
     out: Dict[str, int] = {}
     total = 0
     for f in dataclasses.fields(index):
         v = getattr(index, f.name)
-        if not isinstance(v, torch.Tensor):
+        parts = v if isinstance(v, tuple) else (v,)
+        if not parts or not all(isinstance(t, torch.Tensor) for t in parts):
             continue
-        nbytes = int(np.prod(tuple(v.shape))) * v.element_size()
+        nbytes = sum(int(np.prod(tuple(t.shape))) * t.element_size()
+                     for t in parts)
         out[f.name] = nbytes
         total += nbytes
     out["total"] = total

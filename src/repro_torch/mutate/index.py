@@ -100,7 +100,8 @@ def _mask_ivf_slots(index: ivf_lib.IVFIndex, b_idx,
     sqn = index.bucket_sqnorm.clone()
     ids[b, s] = PAD_ID
     sqn[b, s] = PAD_SQNORM
-    sizes = index.bucket_sizes.clone().index_add_(
+    # -1 per tombstoned slot is a decrement count, not a pad
+    sizes = index.bucket_sizes.clone().index_add_(  # padlint: ok
         0, b, torch.full_like(b, -1, dtype=index.bucket_sizes.dtype))
     return dataclasses.replace(index, bucket_ids=ids, bucket_sqnorm=sqn,
                                bucket_sizes=sizes)

@@ -63,7 +63,7 @@ class RecalibrationMonitor:
         self._rt = np.zeros((self.capacity,), np.float32)
         self._ids = np.full((self.capacity, self.k), PAD_ID, np.int64)
         # -1 is the "never written" epoch sentinel (the mutation-version
-        # stamp), not a pad id
+        # stamp), not a pad id — padlint: ok
         self._ver = np.full((self.capacity,), -1, np.int64)
         self._n = 0
         self._cursor = 0

@@ -35,6 +35,22 @@ after a serve with the prefetcher, search through ``tier.store`` (or the
 server's retargeted engine). Each boundary's staging time (host to
 device, the stream synchronised before the clock stops) is kept in
 ``stage_seconds``.
+
+Under a mesh the device store is a ``dist.PlacedIVFIndex``: each bucket
+slot's cap rows are split over S shards (``dist.place_index``). The
+tier learns the placement from the store it is given (``ColdTier(index,
+placed_store)``, or ``tier.store = dist.place_index(tier.store, mesh)``)
+or, at the first boundary, from the index the server serves (bare, or
+as a mutable view's base). From then on it keeps its host copy padded to
+the placed cap (vecs 0, ids ``PAD_ID``, sqnorm ``PAD_SQNORM``, the
+placement's own pad), so staging bucket ``bk`` into slot ``sl`` writes
+rows ``[j * cap/S, (j + 1) * cap/S)`` of the host payload into slot
+``sl`` of shard j: S slice copies per array, no device-to-host copy, no
+re-placement. On a serve mesh every host group's view
+(``dist.sharding.host_index``) is refreshed; groups that share a device
+share its tensors, so each distinct tensor is written once. ``hot_map``
+lives on each view's lead device. ``plan`` returns a store placed on the
+same mesh.
 """
 from __future__ import annotations
 
@@ -45,11 +61,20 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.padding import PAD_ID, PAD_SQNORM
+from repro_torch.dist.sharding import PlacedIVFIndex, place_index
 from repro_torch.index import ivf as ivf_lib
+
+_STORE = ("bucket_vecs", "bucket_ids", "bucket_sqnorm")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def _num_slots(store) -> int:
+    vecs = store.bucket_vecs
+    return (vecs[0] if isinstance(store, PlacedIVFIndex) else vecs).shape[0]
 
 
 def split_index(index: ivf_lib.IVFIndex, hot_buckets: np.ndarray
@@ -96,7 +121,7 @@ class ColdTier:
         self.store = store
         hot_map = _host(store.hot_map)
         self.hot_map = hot_map.copy()
-        nslots = store.bucket_vecs.shape[0]
+        nslots = _num_slots(store)
         self.slot_bucket = np.full((nslots,), -1, np.int32)
         resident = np.where(hot_map >= 0)[0]
         self.slot_bucket[hot_map[resident]] = resident
@@ -116,6 +141,35 @@ class ColdTier:
         self.misses = 0
         self.stage_seconds: List[float] = []
 
+    @property
+    def store(self):
+        """The device store: an ``IVFIndex``, or a ``PlacedIVFIndex``
+        when the tier serves under a mesh."""
+        return self._store
+
+    @store.setter
+    def store(self, store) -> None:
+        if isinstance(store, PlacedIVFIndex):
+            self._pad_host(store.cap)
+        self._store = store
+
+    def _pad_host(self, cap: int) -> None:
+        """Pad the host copy's cap dim to a placement's padded ``cap``
+        with the placement's pad (once; a no-op when it is as long)."""
+        extra = cap - self.host_vecs.shape[1]
+        if extra <= 0:
+            return
+        nlist, _, dim = self.host_vecs.shape
+        self.host_vecs = torch.cat(
+            [self.host_vecs, self.host_vecs.new_zeros((nlist, extra, dim))],
+            1)
+        self.host_ids = torch.cat(
+            [self.host_ids, self.host_ids.new_full((nlist, extra), PAD_ID)],
+            1)
+        self.host_sqn = torch.cat(
+            [self.host_sqn,
+             self.host_sqn.new_full((nlist, extra), PAD_SQNORM)], 1)
+
     # -- demand planning ----------------------------------------------
 
     def plan(self, queries: np.ndarray, *, nprobe: int,
@@ -131,8 +185,9 @@ class ColdTier:
         centroids and seeding residency by early-probe demand closes
         exactly that window: buckets scored by how many queries want
         them within their first ``first`` probes (earlier probes weigh
-        more). Returns the new device store (new tensors); build the
-        serving engine from it."""
+        more). Returns the new device store (new tensors), placed on the
+        current store's mesh when it is placed; build the serving engine
+        from it."""
         dev = self.store.device
         q = torch.as_tensor(np.asarray(queries, np.float32), device=dev)
         qsq = (q * q).sum(1, keepdim=True)
@@ -154,6 +209,19 @@ class ColdTier:
         self.hot_map = hot_map
         self.slot_bucket = hot.copy()
         sel = torch.as_tensor(hot).long()
+        if isinstance(self.store, PlacedIVFIndex):
+            # The host rows, already padded to the placed cap, go to their
+            # shards by the placement's own rules (one copy per block).
+            placed = self.store
+            self.store = place_index(ivf_lib.IVFIndex(
+                centroids=placed.centroids,
+                bucket_vecs=self.host_vecs[sel],
+                bucket_ids=self.host_ids[sel],
+                bucket_sqnorm=self.host_sqn[sel],
+                bucket_sizes=placed.bucket_sizes, scale=placed.scale,
+                offset=placed.offset, hot_map=torch.as_tensor(hot_map)),
+                placed.mesh)
+            return self.store
         self.store = dataclasses.replace(
             self.store,
             bucket_vecs=self.host_vecs[sel].to(dev),
@@ -190,6 +258,7 @@ class ColdTier:
 
     def on_boundary(self, server) -> None:
         """Stage upcoming cold buckets; evict slots nothing will probe."""
+        self._adopt(server)
         want = self._demand(server)
         if not want:
             return
@@ -212,6 +281,9 @@ class ColdTier:
             self._count(near, 0, 0)
             return
         t0 = time.perf_counter()
+        targets = self._targets()
+        host = {"bucket_vecs": self.host_vecs, "bucket_ids": self.host_ids,
+                "bucket_sqnorm": self.host_sqn}
         evicted = 0
         for bk, sl in loads:
             old = int(self.slot_bucket[sl])
@@ -219,19 +291,63 @@ class ColdTier:
                 self.hot_map[old] = -1
                 evicted += 1
             # Host payload is canonical — staging is device-write only.
-            self.store.bucket_vecs[sl].copy_(self.host_vecs[bk])
-            self.store.bucket_ids[sl].copy_(self.host_ids[bk])
-            self.store.bucket_sqnorm[sl].copy_(self.host_sqn[bk])
+            for name, t, lo, hi in targets:
+                t[sl].copy_(host[name][bk, lo:hi])
             self.hot_map[bk] = sl
             self.slot_bucket[sl] = bk
-        if self.store.device.type == "cuda":
-            torch.cuda.synchronize(self.store.device)
+        for dev in {t.device for _, t, _, _ in targets}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         self.stage_seconds.append(time.perf_counter() - t0)
-        self.store = dataclasses.replace(
-            self.store,
-            hot_map=torch.as_tensor(self.hot_map, device=self.store.device))
+        self.store = self._with_hot_map(self.store)
         self._retarget(server)
         self._count(near, len(loads), evicted)
+
+    def _adopt(self, server) -> None:
+        """Take the placement the server serves (bare, or a mutable
+        view's base) as the tier's store, when the caller placed the
+        store after building the tier."""
+        idx = server.engine.index
+        idx = getattr(idx, "base", idx)
+        if (isinstance(idx, PlacedIVFIndex) and idx is not self.store
+                and idx.hot_map is not None
+                and idx.nlist == self.store.nlist
+                and _num_slots(idx) == self.slot_bucket.size):
+            self.store = idx
+
+    def _targets(self):
+        """(array name, device tensor, lo, hi): every distinct store
+        tensor staging writes, with the host cap rows it receives."""
+        st = self.store
+        if not isinstance(st, PlacedIVFIndex):
+            return [(name, getattr(st, name), 0, st.cap) for name in _STORE]
+        out, seen = [], set()
+        for view in (st,) + tuple(st.host_views):
+            for name in _STORE:
+                lo = 0
+                for t in getattr(view, name):
+                    key = (t.device, t.data_ptr())
+                    if key not in seen:
+                        seen.add(key)
+                        out.append((name, t, lo, lo + t.shape[1]))
+                    lo += t.shape[1]
+        return out
+
+    def _with_hot_map(self, store):
+        """``store`` (and each host view) around the tier's current
+        ``hot_map``, one copy on each distinct lead device."""
+        maps = {}
+
+        def on(dev):
+            if dev not in maps:
+                maps[dev] = torch.as_tensor(self.hot_map, device=dev)
+            return maps[dev]
+        kw = {"hot_map": on(store.device)}
+        if getattr(store, "host_views", ()):
+            kw["host_views"] = tuple(
+                dataclasses.replace(v, hot_map=on(v.device))
+                for v in store.host_views)
+        return dataclasses.replace(store, **kw)
 
     def _retarget(self, server) -> None:
         """Contents-only engine refresh around the new store view."""

@@ -787,3 +787,75 @@ def test_placed_mutable_view_on_the_card_equals_its_engine(dev, kind):
     assert torch.equal(s1.ndis, s2.ndis)
     dead = torch.as_tensor(mut.deleted_ids, device=dev)
     assert not torch.isin(sharded.topk_i(s2), dead).any()
+
+
+@pytest.fixture(scope="module")
+def cold_on_card():
+    """An IVF index built on the card from float data, a Darth fitted
+    there, queries and mixed targets, for the cold tier under a mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.core import api, engines
+    from repro_torch.index import ivf
+    rng = np.random.default_rng(11)
+    centers = rng.normal(size=(64, 32)) * 4
+
+    def draw(m):
+        return (centers[rng.integers(0, 64, m)]
+                + rng.normal(size=(m, 32))).astype(np.float32)
+    x, learn, q = draw(30_000), draw(512), draw(300)
+    rts = np.random.default_rng(0).choice([0.8, 0.9, 0.95],
+                                          300).astype(np.float32)
+    index = ivf.build(x, nlist=64, seed=0, device="cuda")
+    d = api.Darth(make_engine=lambda **kw: engines.ivf_engine(index, **kw),
+                  engine=engines.ivf_engine(index, k=10, nprobe=64))
+    d.fit(learn, x)
+    return index, d, q, rts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4])
+def test_cold_tier_staging_into_a_placed_store_on_the_card(cold_on_card,
+                                                           shards):
+    """plan + prefetch at 16 of 64 buckets (lookahead 4, staging 8): the
+    tier staging into a store placed at S shards on cuda:0 serves, per
+    query, the ids, ndis and decisions of the single-device tier, with
+    equal prefetch, eviction and miss counts, through the kernels."""
+    from repro_torch import dist
+    from repro_torch.core import engines
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import DarthServer, cold
+    index, d, q, rts = cold_on_card
+    mesh = mesh_lib.make_search_mesh(shards, "cuda:0")
+
+    def serve(placed):
+        tier = cold.make_cold_tier(index, hot_slots=16)
+        store = tier.plan(q, nprobe=64, first=4)
+        if placed:
+            store = dist.place_index(store, mesh)
+            eng = engines.sharded_ivf_engine(store, mesh, k=10, nprobe=64)
+        else:
+            eng = engines.ivf_engine(store, k=10, nprobe=64)
+        tracer = Tracer()
+        srv = DarthServer(eng, d.trained.predictor, d.interval_for_target,
+                          num_slots=32, steps_per_sync=4, tracer=tracer,
+                          mesh=mesh if placed else None)
+        res, stats = srv.serve(q, rts, on_boundary=tier.on_boundary)
+        return res, stats, tracer.terminals(), tier
+
+    want = serve(False)
+    before = dict(cuda.LAUNCHES)
+    got = serve(True)
+    assert all(cuda.LAUNCHES[k] > before[k]
+               for k in ("bucket_probe", "gbdt_predict"))
+    assert isinstance(got[3].store, sharding.PlacedIVFIndex)
+    assert got[3].prefetches > 0 and got[1].completed == q.shape[0]
+    for name in ("prefetches", "evictions", "misses"):
+        assert getattr(got[3], name) == getattr(want[3], name), name
+    for (_, a), (_, b) in zip(want[0], got[0]):
+        np.testing.assert_array_equal(b, a)
+    for qid, span in want[2].items():
+        for key in ("ndis", "npred", "reason"):
+            assert got[2][qid].attrs.get(key) == span.attrs.get(key), key
