@@ -188,6 +188,26 @@ Phases, each fatal on failure:
               the CPU's per call site and in total, with no nvcc after the
               first chunk; then each kernel at the gate's shapes against
               its plain version.
+12. lm:       the LM serving path (``repro_torch.models``). [lm]:
+              smollm-360m at its registered width from ``init_params``
+              on the card: a prefill of 8 x 2048 seeded tokens (wall,
+              tokens/s), a 64-token prompt through ``decode_step`` then
+              64 greedy tokens at S_max 128 (ms a token), the decode's
+              logits at position 63 within the reference's own bound of
+              the prefill's (atol 0.15, rtol 0.05, top-1 equal), and the
+              card against the CPU path on the same weights (2 x 32).
+              [lm-moe]: qwen3-moe-30b-a3b at full width, 4 of 48 layers
+              (a CUT line; 2 past 900 s of the script): prefill 4 x 512
+              (drop fraction, aux loss), 16 decode tokens, the card
+              against the CPU path at 1 layer. [rag]:
+              ``repro_torch.examples.rag_serve.main`` with the LM at
+              smollm-360m's width and the example's own sizes (8,000
+              documents, nlist 64, 64 requests at 0.80 / 0.95, k 5); the
+              counts are zeroed just before and read just after, every
+              kernel must have run, and each target's recall must reach
+              target - 0.03 against ground truth from the plain version;
+              then each kernel at the path's shapes (D = 960) against its
+              plain version.
 
 Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -209,9 +229,9 @@ empty kernel's time (``launch_floor_ms`` by events, and
 It imports nothing of JAX or of the ``repro`` package. Output: JSON lines
 of each path's results and of per-kernel results (``launches`` summed
 over the paths, ``launches_by_path`` split: ivf, hnsw, serve, mutate,
-competitors, cold, cold_shard, sharded, quickstart, audit), each phase's
-wall time, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. Full
+competitors, cold, cold_shard, sharded, quickstart, audit, rag), each
+phase's wall time, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Full
 results also go to ``results/chip_smoke.json``. Without a CUDA card, or
 without the repository around it, it exits non-zero and prints no result.
 """
@@ -282,6 +302,33 @@ SHARD_MUT_COUNTS = (2, 7)
 # seconds of the script it runs at 2 shards only (a CUT line says so).
 COLD_SHARD_COUNTS = (2, 4)
 COLD_SHARD_CUT_AT = 800.0
+# Phase 12, the LM serving path: smollm-360m and qwen3-moe-30b-a3b at
+# their registered widths. [lm]: prefill (batch, sequence); decode (prompt
+# tokens, greedy tokens, S_max); the card against the CPU path (batch,
+# sequence). The decode must agree with the prefill, and the card's logits
+# with the CPU's, within the reference's own bound between two float paths
+# of one model (tests/test_models.py::test_prefill_decode_consistency);
+# the errors print beside the CPU tests' tolerances at 2 layers
+# (tests/test_torch_models.py). [lm-moe]: the depth is cut to MOE_LAYERS of
+# 48 (MOE_LAYERS_CUT past MOE_CUT_AT s of the script); prefill (batch,
+# sequence), decode tokens, and the card against the CPU path at 1 layer
+# (batch, sequence) within tests/test_torch_moe.py's tolerances (logits
+# 0.05; at most MOE_FLIPPED_ROWS token rows of hidden state beyond 2^-4).
+LM_ARCH, MOE_ARCH = "smollm-360m", "qwen3-moe-30b-a3b"
+LM_PREFILL, LM_DECODE, LM_VS_CPU = (8, 2048), (64, 64, 128), (2, 32)
+LM_CONSISTENCY = {"atol": 0.15, "rtol": 0.05}
+LM_HIDDEN_ATOL, LM_LOGIT_ATOL, MOE_LOGIT_ATOL = 2.0 ** -4, 0.01, 0.05
+MOE_FLIPPED_ROWS = 2
+MOE_LAYERS, MOE_LAYERS_CUT, MOE_CUT_AT = 4, 2, 900.0
+MOE_PREFILL, MOE_DECODE, MOE_VS_CPU = (4, 512), 16, (1, 16)
+# [rag]: the example serves 64 requests, 32 a target, whose mean recall@5
+# has a standard error near 0.04 (per-request recall moves in steps of
+# 0.2), above the 0.03 tolerance: one draw can miss by chance. So the
+# recall gate runs on RAG_GATE_REQUESTS requests of the same path (the
+# first 64 of them are the example's own, and must be served alike); the
+# example's own run prints its recall and standard error, and a FLAG line
+# where it falls below target - TOL.
+RAG_GATE_REQUESTS = 1024
 SHARD_CUTS = (
     "the sharded HNSW checks use the first 256 of the 1,000 test queries "
     "(each runs the 750,000-row graph at ef 384 to natural termination, "
@@ -2597,6 +2644,408 @@ def quickstart_path(card):
     return out, launches, failures
 
 
+def _on_cpu(tree):
+    """A parameter tree's copy on the host."""
+    return {k: _on_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def _sliced(tree, n):
+    """The first n layers of a parameter tree's stacked blocks (views)."""
+    return {k: (_sliced(v, n) if isinstance(v, dict) else v[:n])
+            for k, v in tree.items()}
+
+
+def _lm_sizes(params):
+    from repro_torch.models import model_zoo
+    leaves = [a for _, a in model_zoo.leaves(params)]
+    return {"params": sum(a.numel() for a in leaves),
+            "bytes": sum(a.numel() * a.element_size() for a in leaves)}
+
+
+def _max_err(a, b):
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def lm_dense(card):
+    """Phase 12, [lm]: smollm-360m at its registered width (32 layers,
+    d_model 960, 15 / 5 heads, head_dim 64, d_ff 2560, vocab 49152, tied)
+    from ``init_params(seed=0)`` on the card: prefill on LM_PREFILL seeded
+    tokens, a LM_DECODE[0]-token prompt through ``decode_step`` then
+    LM_DECODE[1] greedy tokens at S_max LM_DECODE[2], the decode's logits
+    at the prompt's last position against prefill's on the same tokens
+    (the reference's consistency bound), and the card against the port's
+    CPU path on the same weights at LM_VS_CPU. Returns (results,
+    failures)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    out, failures = {"card": card}, []
+    cfg = configs.get_config(LM_ARCH)
+    t0 = time.time()
+    params = model_zoo.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out.update(_lm_sizes(params), init_s=time.time() - t0)
+    gen = torch.Generator().manual_seed(0)
+    b, s = LM_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         dtype=torch.int32).cuda()
+    model_zoo.prefill(cfg, params, {"tokens": toks[:1, :128]})  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    last = model_zoo.prefill(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    out["prefill"] = {"batch": b, "seq": s, "wall_s": wall,
+                      "tokens_per_s": b * s / wall,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "finite": bool(torch.isfinite(last).all())}
+    if not out["prefill"]["finite"]:
+        failures.append("lm: prefill gave non-finite logits")
+
+    n_prompt, n_new, s_max = LM_DECODE
+    prompt = toks[:, :n_prompt]
+    cache = model_zoo.make_cache(cfg, b, s_max, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for t in range(n_prompt):
+        logits, cache = model_zoo.decode_step(cfg, params, cache,
+                                              prompt[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    prompt_s = time.time() - t0
+    full = model_zoo.prefill(cfg, params, {"tokens": prompt})
+    consistent = bool(torch.allclose(logits, full, **LM_CONSISTENCY)
+                      and torch.equal(logits.argmax(-1), full.argmax(-1)))
+    out["consistency"] = {"max_abs_err": _max_err(logits, full),
+                          "bound": LM_CONSISTENCY, "top1_equal": bool(
+                              torch.equal(logits.argmax(-1),
+                                          full.argmax(-1))),
+                          "ok": consistent}
+    if not consistent:
+        failures.append(f"lm: decode logits at position {n_prompt - 1} "
+                        f"outside the reference's bound of prefill's: "
+                        f"{out['consistency']}")
+    tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for t in range(n_new):
+        logits, cache = model_zoo.decode_step(cfg, params, cache, tok,
+                                              n_prompt + t)
+        tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    new_s = time.time() - t0
+    out["decode"] = {"batch": b, "s_max": s_max,
+                     "prompt_ms_per_token": 1e3 * prompt_s / n_prompt,
+                     "greedy_ms_per_token": 1e3 * new_s / n_new,
+                     "finite": bool(torch.isfinite(logits).all())}
+    if not out["decode"]["finite"]:
+        failures.append("lm: decode gave non-finite logits")
+    del cache, full, last
+
+    # The card against the port's CPU path, on the same weights.
+    vb, vs = LM_VS_CPU
+    small = toks[:vb, :vs]
+    on_card = model_zoo.forward(cfg, params, {"tokens": small})[0]
+    logits_card = model_zoo.prefill(cfg, params, {"tokens": small})
+    t0 = time.time()
+    cpu_params = _on_cpu(params)
+    on_cpu = model_zoo.forward(cfg, cpu_params, {"tokens": small.cpu()})[0]
+    logits_cpu = model_zoo.prefill(cfg, cpu_params, {"tokens": small.cpu()})
+    out["vs_cpu"] = {
+        "batch": vb, "seq": vs, "cpu_s": time.time() - t0,
+        "hidden_max_abs_err": _max_err(on_card, on_cpu),
+        "hidden_atol_2_layers": LM_HIDDEN_ATOL,
+        "logits_max_abs_err": _max_err(logits_card, logits_cpu),
+        "logits_atol_2_layers": LM_LOGIT_ATOL, "bound": LM_CONSISTENCY,
+        "ok": bool(torch.allclose(logits_card.cpu(), logits_cpu,
+                                  **LM_CONSISTENCY))}
+    if not out["vs_cpu"]["ok"]:
+        failures.append(f"lm: the card's logits outside the reference's "
+                        f"bound of the CPU's: {out['vs_cpu']}")
+    del cpu_params, params
+    torch.cuda.empty_cache()
+    print(f"[lm] {cfg.name} {out}", flush=True)
+    return out, failures
+
+
+def lm_moe(card, layers):
+    """Phase 12, [lm-moe]: qwen3-moe-30b-a3b at its registered width (d_model
+    2048, 32 / 4 heads, head_dim 128, 128 experts top-8, expert d_ff 768,
+    vocab 151936) with its depth cut to ``layers`` of 48: prefill on
+    MOE_PREFILL seeded tokens (drop fraction and aux loss from
+    ``forward``), MOE_DECODE tokens through ``decode_step`` from an empty
+    cache, and the card against the CPU path at 1 layer on MOE_VS_CPU.
+    Returns (results, failures)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    out, failures = {"card": card, "layers": layers}, []
+    full = configs.get_config(MOE_ARCH)
+    cfg = full.scaled(num_layers=layers)
+    t0 = time.time()
+    params = model_zoo.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out.update(_lm_sizes(params), init_s=time.time() - t0)
+    print(f"[lm-moe] CUT {cfg.name}: {layers} of {full.num_layers} layers "
+          f"at full width ({out['params'] / 1e9:.2f} B parameters, "
+          f"{out['bytes'] / 1e9:.1f} GB in f32; all 48 would need "
+          f"~{out['bytes'] / layers * full.num_layers / 1e9:.0f} GB, more "
+          f"than the card holds)", flush=True)
+    gen = torch.Generator().manual_seed(1)
+    b, s = MOE_PREFILL
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         dtype=torch.int32).cuda()
+    model_zoo.prefill(cfg, params, {"tokens": toks[:1, :64]})   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    last = model_zoo.prefill(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    _, _, metrics = model_zoo.forward(cfg, params, {"tokens": toks})
+    out["prefill"] = {"batch": b, "seq": s, "wall_s": wall,
+                      "tokens_per_s": b * s / wall,
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "finite": bool(torch.isfinite(last).all()),
+                      "moe_drop_frac": float(metrics["moe_drop_frac"]),
+                      "moe_aux_loss": float(metrics["moe_aux_loss"])}
+    cache = model_zoo.make_cache(cfg, b, MOE_DECODE, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for t in range(MOE_DECODE):
+        logits, cache = model_zoo.decode_step(cfg, params, cache,
+                                              toks[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    first = model_zoo.prefill(cfg, params, {"tokens": toks[:, :MOE_DECODE]})
+    out["decode"] = {"batch": b, "tokens": MOE_DECODE, "s_max": MOE_DECODE,
+                     "ms_per_token": 1e3 * (time.time() - t0) / MOE_DECODE,
+                     "finite": bool(torch.isfinite(logits).all()),
+                     "vs_prefill_max_abs_err": _max_err(logits, first)}
+    if not (out["prefill"]["finite"] and out["decode"]["finite"]):
+        failures.append(f"lm-moe: non-finite logits {out}")
+    del cache, last, first
+
+    vb, vs = MOE_VS_CPU
+    one = full.scaled(num_layers=1)
+    p1 = dict(params, blocks=_sliced(params["blocks"], 1))
+    small = toks[:vb, :vs]
+    on_card = model_zoo.forward(one, p1, {"tokens": small})[0]
+    logits_card = model_zoo.prefill(one, p1, {"tokens": small})
+    t0 = time.time()
+    cpu_params = _on_cpu(p1)
+    del params, p1
+    torch.cuda.empty_cache()
+    on_cpu = model_zoo.forward(one, cpu_params, {"tokens": small.cpu()})[0]
+    logits_cpu = model_zoo.prefill(one, cpu_params, {"tokens": small.cpu()})
+    rows_off = int(((on_card.float().cpu() - on_cpu.float()).abs()
+                    > LM_HIDDEN_ATOL).any(-1).sum())
+    out["vs_cpu"] = {
+        "layers": 1, "batch": vb, "seq": vs, "cpu_s": time.time() - t0,
+        "hidden_max_abs_err": _max_err(on_card, on_cpu),
+        "hidden_rows_beyond_atol": rows_off, "hidden_atol": LM_HIDDEN_ATOL,
+        "logits_max_abs_err": _max_err(logits_card, logits_cpu),
+        "logits_atol": MOE_LOGIT_ATOL}
+    if (rows_off > MOE_FLIPPED_ROWS
+            or out["vs_cpu"]["logits_max_abs_err"] > MOE_LOGIT_ATOL):
+        failures.append(f"lm-moe: the card outside the CPU tests' "
+                        f"tolerances of the CPU: {out['vs_cpu']}")
+    del cpu_params
+    print(f"[lm-moe] {cfg.name} {out}", flush=True)
+    return out, failures
+
+
+def rag_kernel_shapes(res, launches):
+    """l2_topk, bucket_probe and gbdt_predict at the RAG path's own shapes
+    (D = the LM's width), each against its plain version on the same
+    inputs and timed beside its bound: l2_topk at the k-means assignment
+    (the corpus x the centroids, k = 1), the fit's ground truth (the learn
+    queries x the corpus, k = K) and the recall check's (the requests x
+    the corpus); bucket_probe at the serve's first chunk step (SLOTS
+    requests at probe rank 1) and at a fit batch's (256 learn queries);
+    gbdt_predict on that chunk's feature rows and on the fit's hold-out.
+    Returns ({kernel: [shape rows]}, failures)."""
+    import torch
+    from repro_torch.core import darth_search
+    from repro_torch.examples import rag_serve
+    from repro_torch.index import ivf
+    from repro_torch.kernels import cuda, ref
+    index, darth = res["index"], res["darth"]
+    x = torch.as_tensor(res["corpus"], device="cuda")
+    xsq = (x * x).sum(1)
+    # Phase 3's tolerance, held at D <= 128, scaled by the depth of the
+    # sum: the kernel's split-TF32 products accumulate in the tensor cores,
+    # whose f32 accumulate truncates, so its error grows with the number
+    # of mma steps (3 a k-step of 8), linearly in D.
+    tol = 1e-3 + 1e-5 * float(xsq.max()) * max(1.0, x.shape[1] / 128)
+    cents = index.centroids
+    shapes = {"l2_topk": [], "bucket_probe": [], "gbdt_predict": []}
+    failures = []
+    for case, qq, xx, sq, kk in (
+            ("rag k-means assignment", x, cents, (cents * cents).sum(1), 1),
+            ("rag fit ground truth", torch.as_tensor(
+                res["learn_q"], device="cuda"), x, xsq, rag_serve.K),
+            ("rag recall check ground truth", torch.as_tensor(
+                res["req_emb"], device="cuda"), x, xsq, rag_serve.K)):
+        d_k, i_k = cuda.l2_topk(qq, xx, sq, kk)
+        d_r, i_r = ref.l2_topk_ref(qq, xx, sq, kk)
+        err, agree, ok = topk_agreement(d_k, i_k, d_r, i_r, tol)
+        row = shape_row_l2(case, qq, xx, sq, kk, launches["l2_topk"], 20,
+                           plain_reps=5)
+        row.update(max_abs_err=err, id_agreement=agree, tol=tol)
+        shapes["l2_topk"].append(row)
+        print(f"[rag] l2_topk {row}", flush=True)
+        if not ok:
+            failures.append(f"l2_topk disagrees with plain at {case}")
+    for case, qs in (("rag serve chunk step", res["req_emb"][
+            :rag_serve.SLOTS]), ("rag fit batch", res["learn_q"][:256])):
+        qt = torch.as_tensor(qs, device="cuda")
+        st = ivf.probe_step(index, ivf.init_state(
+            index, qt, k=rag_serve.K, nprobe=index.nlist))
+        args = (st.q, index.bucket_vecs, index.bucket_sqnorm,
+                index.bucket_ids, st.probe_order[:, 1].contiguous(),
+                st.active, st.qsq, st.topk_d[:, -1:].contiguous(),
+                st.topk_d, st.topk_i)
+        btol = 1e-3 + 1e-5 * float(torch.nan_to_num(
+            index.bucket_sqnorm, posinf=0).max())
+        row, ok = shape_row_probe(case, index, args, btol,
+                                  launches["bucket_probe"])
+        shapes["bucket_probe"].append(row)
+        print(f"[rag] bucket_probe {row}", flush=True)
+        if not ok:
+            failures.append(f"bucket_probe disagrees with plain at {case}")
+        if case == "rag serve chunk step":
+            feats = darth_search._features(darth.engine, st).contiguous()
+    log = darth._last_log
+    nf = log.features.shape[-1]
+    valid = log.features.reshape(-1, nf)[log.valid.reshape(-1)]
+    hold = torch.as_tensor(valid[:max(1, int(0.1 * valid.shape[0]))],
+                           device="cuda")
+    for case, xx in (("rag serve chunk, the pool's feature rows", feats),
+                     ("rag fit hold-out", hold)):
+        row = shape_row_gbdt(case, xx, darth.trained.predictor.params,
+                             launches["gbdt_predict"])
+        shapes["gbdt_predict"].append(row)
+        print(f"[rag] gbdt_predict {row}", flush=True)
+        if row["max_abs_err"] > 1e-5:
+            failures.append(f"gbdt_predict disagrees with plain at {case}: "
+                            f"{row['max_abs_err']}")
+    return shapes, failures
+
+
+def _rag_recall(res):
+    """Per target: (mean recall@K of the served ids against exact ground
+    truth from the PLAIN version, so the kernel does not check itself, and
+    its standard error over the target's requests)."""
+    import numpy as np
+    import torch
+    from repro_torch.examples import rag_serve
+    from repro_torch.index import flat
+    from repro_torch.kernels import ref
+    q = torch.as_tensor(res["req_emb"], device="cuda")
+    x = torch.as_tensor(res["corpus"], device="cuda")
+    _, gt = ref.l2_topk_ref(q, x, (x * x).sum(1), rag_serve.K)
+    ids = torch.as_tensor(np.stack([r[1] for r in res["results"]]),
+                          device="cuda")
+    rec = flat.recall_at_k(ids, gt).cpu().numpy()
+    return {str(t): (float(rec[i::2].mean()), float(
+        rec[i::2].std() / np.sqrt(rec[i::2].size)))
+        for i, t in enumerate(rag_serve.TARGETS)}
+
+
+def rag_path(card):
+    """Phase 12, [rag]: ``repro_torch.examples.rag_serve.main`` with the
+    LM at smollm-360m's registered width and everything else at the
+    example's own sizes (8,000 documents x 24 tokens, nlist 64, 512 learn
+    queries, 64 requests at 0.80 / 0.95, k 5, 32 slots). The counts are
+    zeroed just before and read just after; every kernel must have run.
+    Then the same path with RAG_GATE_REQUESTS requests: its first 64 must
+    be served as the example's own, and each target's mean recall must
+    reach target - TOL against exact ground truth from the plain version.
+    Then each kernel at the path's own shapes. Returns (results, launches
+    by kernel, failures, {kernel: [shape rows]})."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.examples import rag_serve
+    from repro_torch.kernels import cuda
+    cfg = configs.get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.time()
+    res = rag_serve.main(cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    out = {"card": card, "wall_s": time.time() - t0, "launches": launches,
+           "seconds": res["seconds"], "generated": res["generated"],
+           "stats": {k: getattr(res["stats"], k) for k in (
+               "completed", "engine_steps", "refills", "ndis_harvested")},
+           "dim": int(res["corpus"].shape[1]), "nlist": res["index"].nlist,
+           "cap": res["index"].cap,
+           "recall_printed": {str(t): r for t, r in res["recall"].items()},
+           "recall_vs_plain_gt": _rag_recall(res)}
+    failures = [f"kernel {name} was not launched by the RAG path"
+                for name, n in launches.items() if n < 1]
+    print(f"[rag] {out}", flush=True)
+    for t, (r, se) in out["recall_vs_plain_gt"].items():
+        if r < float(t) - TOL:
+            print(f"[rag] FLAG: the example's 64 requests reach recall "
+                  f"{r:.4f} at target {t}, below target - {TOL}, with a "
+                  f"standard error of {se:.4f} (the gate below serves "
+                  f"{RAG_GATE_REQUESTS} requests)", flush=True)
+
+    t0 = time.time()
+    big = rag_serve.main(cfg=cfg, n_req=RAG_GATE_REQUESTS, device="cuda")
+    torch.cuda.synchronize()
+    n = len(res["results"])
+    gate = {"requests": RAG_GATE_REQUESTS, "wall_s": time.time() - t0,
+            "recall_vs_plain_gt": _rag_recall(big),
+            "first_requests_differ": sum(
+                not np.array_equal(a[1], b[1])
+                for a, b in zip(res["results"], big["results"][:n]))}
+    out["gate"] = gate
+    print(f"[rag] gate {gate}", flush=True)
+    if gate["first_requests_differ"]:
+        failures.append(f"rag: {gate['first_requests_differ']} of the first "
+                        f"{n} requests served otherwise in the larger run")
+    for t, (r, _) in gate["recall_vs_plain_gt"].items():
+        if r < float(t) - TOL:
+            failures.append(f"rag: recall {r:.4f} over {RAG_GATE_REQUESTS} "
+                            f"requests below target {t} - {TOL}")
+    del big
+    shapes, more = rag_kernel_shapes(res, launches)
+    return out, launches, failures + more, shapes
+
+
+def lm_phase(card):
+    """Phase 12: [lm], [lm-moe] and [rag]. Past MOE_CUT_AT seconds of the
+    script [lm-moe] runs MOE_LAYERS_CUT layers (a CUT line says so).
+    Returns (results, rag launches by kernel, failures, {kernel: [shape
+    rows]})."""
+    import torch
+    t_start = time.time()
+    out = {"matmul_settings": {
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+        "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}}
+    print(f"[lm] matmul settings {out['matmul_settings']}", flush=True)
+    out["lm"], failures = lm_dense(card)
+    layers = MOE_LAYERS
+    if t_start - T_START > MOE_CUT_AT:
+        layers = MOE_LAYERS_CUT
+        print(f"[lm-moe] CUT to {layers} layers: the script had run "
+              f"{t_start - T_START:.0f} s of its 1200 s when phase 12 began "
+              f"(past {MOE_CUT_AT:.0f} s)", flush=True)
+    out["lm_moe"], more = lm_moe(card, layers)
+    failures += more
+    out["rag"], launches, more, shapes = rag_path(card)
+    failures += more
+    out["wall_s"] = time.time() - t_start
+    print(f"[lm] phase 12 took {out['wall_s']:.1f}s", flush=True)
+    return out, launches, failures, shapes
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -3161,12 +3610,17 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     phase_done("11 audit")
+    # -- 12. the LM serving path and the RAG example -------------------------
+    lm_out, rag_launches, failures, rag_shapes = lm_phase(card)
+    if failures:
+        return fail("; ".join(failures))
+    phase_done("12 lm")
     print(f"[main] phase wall s {walls}", flush=True)
 
     extra_shapes = {name: [] for name in _build.KERNELS}
     for shapes in (serve_out["kernel_shapes"], {"l2_topk": delta_rows},
                    compete_shapes, cold_shapes, cshard_shapes, shard_shapes,
-                   audit_shapes):
+                   audit_shapes, rag_shapes):
         for name, rows in shapes.items():
             extra_shapes[name] += rows
     for row in kernels:
@@ -3183,7 +3637,8 @@ def main() -> int:
                    "cold_shard": cshard_launches[row["name"]],
                    "sharded": shard_launches[row["name"]],
                    "quickstart": quick_launches[row["name"]],
-                   "audit": audit_launches[row["name"]]}
+                   "audit": audit_launches[row["name"]],
+                   "rag": rag_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
@@ -3195,7 +3650,7 @@ def main() -> int:
            "competitors_path": compete_out, "cold_path": cold_out,
            "cold_shard_path": cshard_out, "sharded_path": shard_out,
            "quickstart_path": quick_out, "audit_path": audit_out,
-           "kernels": kernels, "launches": launches,
+           "lm_path": lm_out, "kernels": kernels, "launches": launches,
            "hnsw_launches": hnsw_launches, "serve_launches": serve_launches,
            "mutate_launches": mutate_launches,
            "competitors_launches": compete_launches,
@@ -3203,7 +3658,7 @@ def main() -> int:
            "cold_shard_launches": cshard_launches,
            "sharded_launches": shard_launches,
            "quickstart_launches": quick_launches,
-           "audit_launches": audit_launches}
+           "audit_launches": audit_launches, "rag_launches": rag_launches}
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
     with open(os.path.join(HERE, "results", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1, default=float)
@@ -3217,6 +3672,7 @@ def main() -> int:
     print(json.dumps({"sharded_path": shard_out}, default=float))
     print(json.dumps({"quickstart_path": quick_out}, default=float))
     print(json.dumps({"audit_path": audit_out}, default=float))
+    print(json.dumps({"lm_path": lm_out}, default=float))
     print(json.dumps({"kernels": kernels}, default=float))
     print(f"[main] chip_smoke.py took {time.time() - T_START:.1f}s",
           flush=True)

@@ -2,8 +2,8 @@
 
 The reference hands its arrays over with ``np.asarray`` (nothing here
 imports it); these functions turn them into the port's objects on a
-given device, so the two packages can be given the same index and the
-same predictor.
+given device, so the two packages can be given the same index, the same
+predictor and the same LM weights.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from repro_torch.core.training import TrainedDarth
 from repro_torch.gbdt.model import GBDTParams, from_state_dict
 from repro_torch.index.hnsw import HNSWIndex
 from repro_torch.index.ivf import IVFIndex
+from repro_torch.models import model_zoo
 
 _IVF_DTYPES = {
     "centroids": (np.float32,),
@@ -104,3 +105,47 @@ def trained_from_numpy(state_dict: Mapping[str, Any],
         predictor=RecallPredictor(gbdt_params_from_numpy(state_dict, device)),
         dists_rt={float(k): float(v) for k, v in dists_rt.items()},
         metrics={}, train_seconds=0.0, num_samples=0)
+
+
+def _lm_leaf(v, want: torch.dtype, name: str) -> torch.Tensor:
+    """One LM leaf as a CPU tensor. A bf16 array from the reference has
+    ml_dtypes' ``bfloat16`` dtype, which ``torch.from_numpy`` refuses: it
+    is taken by its bits (an int16 view), so nothing here needs
+    ml_dtypes."""
+    v = np.ascontiguousarray(v)
+    if v.dtype.name == "bfloat16":
+        t = torch.from_numpy(v.view(np.int16).copy()).view(torch.bfloat16)
+    elif v.dtype == np.float32:
+        t = torch.from_numpy(v.copy())
+    else:
+        raise TypeError(f"{name}: dtype {v.dtype}, expected f32 or bf16")
+    if t.dtype != want:
+        raise TypeError(f"{name}: dtype {t.dtype}, the model stores {want}")
+    return t
+
+
+def lm_params(tree: Mapping[str, Any], cfg, device="cuda"
+              ) -> Dict[str, Any]:
+    """The reference's LM parameter tree (nested dicts of numpy arrays:
+    ``jax.tree.map(np.asarray, params)``) as the port's, on ``device``,
+    under the same names. Every leaf's shape is checked against
+    ``model_zoo.param_shapes(cfg)`` and its dtype against
+    ``param_dtype(cfg)``; a missing, extra or misshapen leaf raises."""
+    shapes = dict(model_zoo.leaves(model_zoo.param_shapes(cfg)))
+    got = dict(model_zoo.leaves(tree))
+    missing = sorted(set(shapes) - set(got))
+    extra = sorted(set(got) - set(shapes))
+    if missing or extra:
+        raise KeyError(f"LM parameters: missing {missing}, extra {extra}")
+    want = model_zoo.param_dtype(cfg)
+    out: Dict[str, Any] = {}
+    for path, shape in shapes.items():
+        name = "/".join(path)
+        if tuple(np.shape(got[path])) != tuple(shape):
+            raise ValueError(f"{name}: shape {np.shape(got[path])}, "
+                             f"expected {shape}")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _lm_leaf(got[path], want, name).to(device)
+    return out

@@ -1,0 +1,306 @@
+"""Transformer layers on PyTorch (a port of the reference's
+``repro/models/layers.py``): norms, RoPE, GQA attention (chunked
+flash-style prefill and KV-cache decode), the SwiGLU / GELU MLP, the
+embedding and the output projection.
+
+Pure functions over parameter dicts. The reference computes attention
+and the MLPs in plain ``jnp`` (no Pallas kernel), so the products here
+are ``torch.matmul`` / ``torch.einsum``. The reference computes in bf16,
+and this module follows its rounding step for step:
+
+- an elementwise bf16 op goes as the reference's jaxpr goes (``silu`` is
+  ``logistic`` then ``mul``, ``gelu`` the tanh form with bf16 constants),
+  each step rounded to bf16, not through ``F.silu`` / ``F.gelu``;
+- a product the reference asks for with ``preferred_element_type=f32``
+  takes f32 copies of its bf16 operands (exact) and returns f32;
+- the query is scaled in its own dtype before the product, and the
+  probabilities are cast to the query's dtype before the PV product.
+
+What is left between the two packages is the summation order of the
+products (a bf16 ulp here and there), the last ulp of ``exp``, ``tanh``,
+``rsqrt``, ``cos`` and ``sin``, and, against the reference's compiled
+``lax.scan``, XLA keeping some bf16 sums in f32; the tests state the
+tolerance.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().sum(-1, keepdim=True) / x.shape[-1]
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def nonparam_layernorm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """OLMo-style non-parametric LayerNorm (no scale/bias)."""
+    xf = x.float()
+    n = x.shape[-1]
+    mu = xf.sum(-1, keepdim=True) / n
+    var = (xf - mu).square().sum(-1, keepdim=True) / n
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def apply_norm(kind: str, x: torch.Tensor, params: Optional[Params]
+               ) -> torch.Tensor:
+    if kind == "nonparam_ln":
+        return nonparam_layernorm(x)
+    return rmsnorm(x, params["scale"])
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _frequencies(head_dim: int, theta: float, device: torch.device
+                 ) -> torch.Tensor:
+    """rope_frequencies in f32 on ``device``, made once per (width, theta,
+    device): a decode step would otherwise copy them to the card in
+    every layer."""
+    return torch.as_tensor(rope_frequencies(head_dim, theta),
+                           dtype=torch.float32, device=device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: [B, S, H, Dh], positions: [B, S] or [S]. Rotates the two HALVES
+    of each head (not interleaved pairs), in f32."""
+    freqs = _frequencies(x.shape[-1], float(theta), x.device)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs          # [B, S, Dh/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+
+
+def attn_params_shape(d_model: int, dims: AttnDims):
+    h, kv, dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    return {
+        "wq": (d_model, h * dh),
+        "wk": (d_model, kv * dh),
+        "wv": (d_model, kv * dh),
+        "wo": (h * dh, d_model),
+    }
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, S, Hkv, Dh] -> [B, S, Hkv*groups, Dh]: the ``groups`` copies of
+    a KV head sit next to each other, so query head h reads KV head
+    h // groups."""
+    if groups == 1:
+        return k
+    return k.repeat_interleave(groups, dim=2)
+
+
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float (a tensor op with
+    it then rounds once, as the reference's product in that dtype)."""
+    return float(torch.tensor(value, dtype=torch.float32).to(dtype))
+
+
+def _flash_fwd_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, q_offset: int, chunk: int,
+                    kv_valid_len: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash-style attention: a loop over KV chunks of ``chunk`` with a
+    running (max, denominator, accumulator), so memory is O(Sq * chunk),
+    not O(Sq * Skv). The last chunk is padded and masked. Fully masked
+    rows give 0. Returns (out [B, Sq, H, Dh] in q's dtype, lse [B, H, Sq]
+    f32).
+
+    q: [B, Sq, H, Dh]; k/v: [B, Skv, H, Dh] (kv heads already repeated);
+    q_offset: absolute position of q[0] (causal masking);
+    kv_valid_len: optional [B] valid kv prefix length (cache decode)."""
+    b, sq, h, dh = q.shape
+    skv = k.shape[1]
+    dev = q.device
+    scale = _in_dtype(float(np.float32(1.0 / np.sqrt(dh))), q.dtype)
+    qf = (q * scale).float()
+    ckv = min(chunk, skv)
+    pad = (-skv) % ckv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nkv = (skv + pad) // ckv
+    q_pos = q_offset + torch.arange(sq, device=dev)
+    inf = float("inf")
+
+    m = torch.full((b, h, sq), -inf, device=dev)
+    l = torch.zeros((b, h, sq), device=dev)
+    acc = torch.zeros((b, h, sq, dh), device=dev)
+    for j in range(nkv):
+        kc = k[:, j * ckv:(j + 1) * ckv].float()
+        vc = v[:, j * ckv:(j + 1) * ckv]
+        kv_pos = j * ckv + torch.arange(ckv, device=dev)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc)
+        mask = (kv_pos[None, :] > q_pos[:, None] if causal else
+                torch.zeros((sq, ckv), dtype=torch.bool, device=dev))
+        invalid = kv_pos >= skv
+        if kv_valid_len is not None:
+            invalid = invalid[None, :] | (kv_pos[None, :]
+                                          >= kv_valid_len[:, None])
+            mask = mask[None, None] | invalid[:, None, None, :]
+        else:
+            mask = (mask | invalid[None, :])[None, None]
+        s = s.masked_fill(mask, -inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None]).masked_fill(mask, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype).float(), vc.float())
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    out = (acc / l_safe[..., None]).transpose(1, 2).to(q.dtype)
+    lse = torch.where(torch.isfinite(m), m + torch.log(l_safe), -inf)
+    return out, lse
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, q_offset: int = 0,
+                      chunk: int = 512,
+                      kv_valid_len: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The reference's ``chunked_attention``: with ``kv_valid_len`` its
+    decode path, without it the forward of ``flash_attention`` (the same
+    float path; the backward comes with training)."""
+    return _flash_fwd_core(q, k, v, causal, q_offset, chunk, kv_valid_len)[0]
+
+
+def gqa_attention(params: Params, x: torch.Tensor, dims: AttnDims, *,
+                  positions: Optional[torch.Tensor] = None,
+                  causal: bool = True, rope_theta: float = 1e4,
+                  chunk: int = 512, use_rope: bool = True) -> torch.Tensor:
+    """Self-attention over a full sequence (prefill)."""
+    b, s, _ = x.shape
+    h, kv, dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = (x @ params["wq"]).reshape(b, s, h, dh)
+    k = (x @ params["wk"]).reshape(b, s, kv, dh)
+    v = (x @ params["wv"]).reshape(b, s, kv, dh)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    k = _repeat_kv(k, h // kv)
+    v = _repeat_kv(v, h // kv)
+    out = chunked_attention(q, k, v, causal=causal, chunk=chunk)
+    return out.reshape(b, s, h * dh) @ params["wo"]
+
+
+def gqa_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
+               cache_v: torch.Tensor, pos: int, dims: AttnDims, *,
+               rope_theta: float = 1e4, chunk: int = 2048,
+               use_rope: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode with a KV cache.
+
+    x: [B, 1, d]; cache_k/v: [B, S_max, Hkv, Dh]; pos: the current length,
+    a Python int (the host owns it: a device scalar as an index would sync
+    every token). Writes this token's K/V into the caches IN PLACE at
+    ``pos`` and returns (out [B, 1, d], cache_k, cache_v). Attention runs
+    over the whole S_max under a mask, as the reference's does, so a step
+    costs O(S_max) whatever ``pos`` is."""
+    b, s_max = x.shape[0], cache_k.shape[1]
+    if not 0 <= pos < s_max:
+        raise ValueError(f"decode position {pos} outside the cache's "
+                         f"{s_max} slots")
+    h, kv, dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    q = (x @ params["wq"]).reshape(b, 1, h, dh)
+    k = (x @ params["wk"]).reshape(b, 1, kv, dh)
+    v = (x @ params["wv"]).reshape(b, 1, kv, dh)
+    if use_rope:
+        posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, posv, rope_theta)
+        k = apply_rope(k, posv, rope_theta)
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    kk = _repeat_kv(cache_k, h // kv)
+    vv = _repeat_kv(cache_v, h // kv)
+    valid = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    out = chunked_attention(q, kk, vv, causal=False, chunk=chunk,
+                            kv_valid_len=valid)
+    return out.reshape(b, 1, h * dh) @ params["wo"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_params_shape(d_model: int, d_ff: int, kind: str = "swiglu"):
+    if kind == "gelu":
+        return {"wi": (d_model, d_ff), "wo": (d_ff, d_model)}
+    return {"wi": (d_model, d_ff), "wg": (d_model, d_ff),
+            "wo": (d_ff, d_model)}
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as its jaxpr runs it: logistic (neg, exp, add,
+    divide), then a multiply, each step rounded to x's dtype."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form) as its jaxpr runs it: the constants
+    0.044715 and sqrt(2/pi) rounded to x's dtype (0.044677734375 and
+    0.796875 in bf16), each step rounded to x's dtype. Not torch's default
+    exact-erf GELU."""
+    c1 = _in_dtype(0.044715, x.dtype)
+    c2 = _in_dtype(float(np.sqrt(2 / np.pi)), x.dtype)
+    return x * (0.5 * (1 + torch.tanh(c2 * (x + c1 * (x * x * x)))))
+
+
+def swiglu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    if "wg" not in params:  # 2-matrix GELU MLP (starcoder2, whisper)
+        return gelu(x @ params["wi"]) @ params["wo"]
+    gate = silu(x @ params["wg"])
+    return ((x @ params["wi"]) * gate) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, table)
+
+
+def logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Tied/untied output projection. x: [B,S,d], table: [V,d] -> [B,S,V]
+    in the promoted dtype of the two, as ``jnp.einsum`` promotes."""
+    dt = torch.promote_types(x.dtype, table.dtype)
+    return torch.einsum("bsd,vd->bsv", x.to(dt), table.to(dt))

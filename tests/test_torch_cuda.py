@@ -859,3 +859,69 @@ def test_cold_tier_staging_into_a_placed_store_on_the_card(cold_on_card,
     for qid, span in want[2].items():
         for key in ("ndis", "npred", "reason"):
             assert got[2][qid].attrs.get(key) == span.attrs.get(key), key
+
+
+# The LM serving path: the card against the port's CPU path on the same
+# weights, at the CPU parity tests' small widths and tolerances
+# (tests/test_torch_models.py, tests/test_torch_moe.py): hidden states
+# within 2^-4, logits within 0.01 (0.05 for MoE, where a near-tied gate
+# may route a token to another expert: at most two token rows beyond).
+LM_SMALL = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                d_ff=128, vocab_size=256, head_dim=16)
+MOE_SMALL = dict(num_experts=4, experts_per_token=2, moe_d_ff=64)
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["glm4-9b", "starcoder2-3b",
+                                  "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b"])
+def test_lm_forward_and_decode_on_the_card_equal_the_cpu(dev, arch):
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    cfg = configs.get_config(arch)
+    moe = cfg.family == "moe"
+    cfg = cfg.scaled(**LM_SMALL, **(MOE_SMALL if moe else {}))
+    cpu = model_zoo.init_params(cfg, seed=0, device="cpu")
+    card = _tree_to(cpu, dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)), dtype=torch.int32)
+    logit_atol = 0.05 if moe else 0.01
+    h_cpu, _, m_cpu = model_zoo.forward(cfg, cpu, {"tokens": toks})
+    h_card, _, m_card = model_zoo.forward(cfg, card, {"tokens": toks.to(dev)})
+    off = ((h_card.float().cpu() - h_cpu.float()).abs() > 2.0 ** -4).any(-1)
+    assert int(off.sum()) <= (2 if moe else 0)
+    assert set(m_card) == set(m_cpu)
+    torch.testing.assert_close(
+        model_zoo.prefill(cfg, card, {"tokens": toks.to(dev)}).cpu(),
+        model_zoo.prefill(cfg, cpu, {"tokens": toks}), rtol=0,
+        atol=logit_atol)
+    c_cpu = model_zoo.make_cache(cfg, 2, 8, device="cpu")
+    c_card = model_zoo.make_cache(cfg, 2, 8, device=dev)
+    for t in range(6):
+        l_cpu, c_cpu = model_zoo.decode_step(cfg, cpu, c_cpu,
+                                             toks[:, t:t + 1], t)
+        l_card, c_card = model_zoo.decode_step(cfg, card, c_card,
+                                               toks[:, t:t + 1].to(dev), t)
+        torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=0,
+                                   atol=logit_atol)
+
+
+@pytest.mark.gpu
+def test_rag_example_on_the_card_meets_every_target_through_the_kernels(dev):
+    """rag_serve.main on the card at the example's own corpus and LM:
+    every kernel runs and each declared target is met within 0.03 over
+    512 requests (the example's 64 give a mean whose standard error,
+    ~0.04, exceeds 0.03). At a smaller corpus the spread of the mean
+    over LM seeds reaches the tolerance, in the reference's runs too."""
+    from repro_torch.examples import rag_serve
+    cuda.reset_launches()
+    out = rag_serve.main(n_req=512, device="cuda")
+    assert all(n > 0 for n in cuda.LAUNCHES.values()), cuda.LAUNCHES
+    for target, rec in out["recall"].items():
+        assert rec >= target - 0.03, (target, rec)
+    assert out["stats"].completed == 512
+    assert len(out["generated"]) == rag_serve.NEW_TOKENS

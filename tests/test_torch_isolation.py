@@ -54,3 +54,17 @@ def test_entry_points_default_to_the_card():
     with pytest.raises((AssertionError, RuntimeError)):
         convert.hnsw_index_from_numpy(arrays)
     assert convert.hnsw_index_from_numpy(arrays, "cpu").device.type == "cpu"
+    # the LM: its weights, its cache and the RAG example
+    from repro_torch.examples import rag_serve
+    from repro_torch.models import model_zoo
+    cfg = rag_serve.example_config().scaled(num_layers=1)
+    with pytest.raises((AssertionError, RuntimeError)):
+        model_zoo.init_params(cfg)
+    params = model_zoo.init_params(cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    with pytest.raises((AssertionError, RuntimeError)):
+        model_zoo.make_cache(cfg, 1, 4)
+    assert model_zoo.make_cache(cfg, 1, 4, device="cpu")["k"].device.type \
+        == "cpu"
+    with pytest.raises((AssertionError, RuntimeError)):
+        rag_serve.main(n_docs=16, n_req=2)
