@@ -195,8 +195,8 @@ Phases, each fatal on failure:
               64 greedy tokens at S_max 128 (ms a token), the decode's
               logits at position 63 within the reference's own bound of
               the prefill's (atol 0.15, rtol 0.05, top-1 equal), and the
-              card against the CPU path on the same weights (2 x 32).
-              [lm-moe]: qwen3-moe-30b-a3b at full width, 4 of 48 layers
+              card against the CPU path on the same weights (2 x 32;
+              the same bound, top-1 equal). [lm-moe]: qwen3-moe-30b-a3b at full width, 4 of 48 layers
               (a CUT line; 2 past 900 s of the script): prefill 4 x 512
               (drop fraction, aux loss), 16 decode tokens, the card
               against the CPU path at 1 layer. [rag]:
@@ -208,6 +208,38 @@ Phases, each fatal on failure:
               target - 0.03 against ground truth from the plain version;
               then each kernel at the path's shapes (D = 960) against its
               plain version.
+13. lm families: the recurrent and encoder-decoder LM families
+              (``repro_torch.models.linear_attn``, the RWKV / zamba /
+              whisper stacks) at their registered widths and depths from
+              ``init_params`` on the card. [lm-ssm] rwkv6-3b and
+              [lm-hybrid] zamba2-1.2b: a prefill of 8 x 2048 seeded tokens
+              (wall, tokens/s, finite logits; the largest |logp| of any
+              chunk read in an untimed prefill of its own), a 64-token
+              prompt through ``decode_step`` then 32 greedy tokens at
+              S_max 128 (ms a token, the cache's dtypes after the first
+              step), and the decode's logits at position 63 against the
+              prefill's (a FLAG line outside the reference's bound, which
+              the reference's own decode misses at these depths). Gated
+              at full width and a reduced depth (rwkv6 2 layers, zamba2
+              7: one group and a tail of 1): the same decode-vs-prefill
+              check (the reference's bound, atol 0.15, rtol 0.05, top-1
+              equal), and the card against the CPU path on the same
+              weights (B 1 x S 64; logits within 0.052, a TF32 control
+              printed beside it), and the chunked linear attention alone
+              on the card against the CPU at one layer's shapes (B 1 x
+              2048; within 1e-4 of its largest value, its TF32 control
+              printed beside it, a FLAG line if that is within too).
+              Past 1000 s of the script they run 8 of 32 and 13 of 38
+              layers (CUT lines).
+              [lm-audio] whisper-base: ``encode_audio`` on 8 x 1500
+              seeded frames, the cross cache filled from the encoder,
+              ``prefill`` on the frames and 448 decoder tokens, the
+              decode at position 0 against a 1-token prefill (the
+              reference's bound, top-1 equal), 32 greedy decode tokens at
+              S_max 448, and the card against the CPU path at full depth
+              (B 1, 1500 frames, S 32) as for the recurrent models. The
+              kernels' counts are zeroed before the phase and read after
+              (no kernel of the repo runs on these paths).
 
 Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -229,13 +261,15 @@ empty kernel's time (``launch_floor_ms`` by events, and
 It imports nothing of JAX or of the ``repro`` package. Output: JSON lines
 of each path's results and of per-kernel results (``launches`` summed
 over the paths, ``launches_by_path`` split: ivf, hnsw, serve, mutate,
-competitors, cold, cold_shard, sharded, quickstart, audit, rag), each
+competitors, cold, cold_shard, sharded, quickstart, audit, rag,
+lm_families), each
 phase's wall time, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Full
 results also go to ``results/chip_smoke.json``. Without a CUDA card, or
 without the repository around it, it exits non-zero and prints no result.
 """
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -329,6 +363,39 @@ MOE_PREFILL, MOE_DECODE, MOE_VS_CPU = (4, 512), 16, (1, 16)
 # example's own run prints its recall and standard error, and a FLAG line
 # where it falls below target - TOL.
 RAG_GATE_REQUESTS = 1024
+# Phase 13, the remaining LM families at their registered widths and
+# depths: prefill (batch, sequence; 2048 is a multiple of the linear
+# attention's chunk of 64), decode (prompt tokens, greedy tokens, S_max);
+# past FAM_CUT_AT s of the script the recurrent stacks run FAM_CUT_LAYERS
+# (rwkv6: 8 of 32; zamba2: two groups of 6 and a tail of 1). At 32-38
+# layers the reference's OWN decode misses its bound of its prefill on
+# the CPU (rwkv6 by the error, zamba2 by top-1;
+# tests/test_torch_models.py::test_*_gap_at_depth_is_the_references), so
+# there the decode-vs-prefill check prints (a FLAG line outside the
+# bound), and the gates run at full width and FAM_GATE_LAYERS: the
+# decode against prefill (the reference's bound, top-1 equal), and the
+# card against the CPU path (batch, sequence) within FAM_VS_CPU_BOUND
+# beside a TF32 control (TF32 matmuls allowed: a card path of lower
+# precision; on an H100 it reads 0.0531 for zamba2 where the sound run
+# reads 0.0504, so the bound lies between), and the chunked linear
+# attention alone within FAM_LA_REL of its largest value (sound ~1e-6,
+# the TF32 control ~5e-4: the logits barely see the f32 einsums, bf16
+# rounding sets their gap; this sees them). Whisper: B AUDIO_BATCH x the
+# registered 1500 frames, its published decoder context of 448 tokens
+# for the prefill and the decode's S_max, AUDIO_DECODE greedy tokens, its
+# decode at position 0 within the reference's bound of a 1-token prefill,
+# and the card within FAM_VS_CPU_BOUND of the CPU at full depth on
+# AUDIO_VS_CPU (batch, decoder tokens).
+SSM_ARCH, HYBRID_ARCH, AUDIO_ARCH = "rwkv6-3b", "zamba2-1.2b", "whisper-base"
+FAM_PREFILL, FAM_DECODE = (8, 2048), (64, 32, 128)
+FAM_VS_CPU = (1, 64)
+FAM_GATE_LAYERS = {SSM_ARCH: 2, HYBRID_ARCH: 7}
+FAM_CUT_LAYERS = {SSM_ARCH: 8, HYBRID_ARCH: 13}
+FAM_CUT_AT = 1000.0
+FAM_VS_CPU_BOUND = {"atol": 0.052, "rtol": 0.0}
+FAM_LA_REL = 1e-4
+AUDIO_BATCH, AUDIO_TOKENS, AUDIO_DECODE = 8, 448, 32
+AUDIO_VS_CPU = (1, 32)
 SHARD_CUTS = (
     "the sharded HNSW checks use the first 256 of the 1,000 test queries "
     "(each runs the 750,000-row graph at ef 384 to natural termination, "
@@ -2667,65 +2734,100 @@ def _max_err(a, b):
     return float((a.float().cpu() - b.float().cpu()).abs().max())
 
 
-def lm_dense(card):
-    """Phase 12, [lm]: smollm-360m at its registered width (32 layers,
-    d_model 960, 15 / 5 heads, head_dim 64, d_ff 2560, vocab 49152, tied)
-    from ``init_params(seed=0)`` on the card: prefill on LM_PREFILL seeded
-    tokens, a LM_DECODE[0]-token prompt through ``decode_step`` then
-    LM_DECODE[1] greedy tokens at S_max LM_DECODE[2], the decode's logits
-    at the prompt's last position against prefill's on the same tokens
-    (the reference's consistency bound), and the card against the port's
-    CPU path on the same weights at LM_VS_CPU. Returns (results,
-    failures)."""
+def _timed_prefill(cfg, params, batch, warm=None):
+    """``prefill`` on ``batch``, after a warm-up on ``warm`` where given:
+    (its last logits, {batch, seq, wall_s, tokens_per_s, peak_bytes,
+    finite})."""
     import torch
-    from repro_torch import configs
     from repro_torch.models import model_zoo
-    out, failures = {"card": card}, []
-    cfg = configs.get_config(LM_ARCH)
-    t0 = time.time()
-    params = model_zoo.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    out.update(_lm_sizes(params), init_s=time.time() - t0)
-    gen = torch.Generator().manual_seed(0)
-    b, s = LM_PREFILL
-    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                         dtype=torch.int32).cuda()
-    model_zoo.prefill(cfg, params, {"tokens": toks[:1, :128]})  # warm-up
+    if warm is not None:
+        model_zoo.prefill(cfg, params, warm)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    last = model_zoo.prefill(cfg, params, {"tokens": toks})
+    last = model_zoo.prefill(cfg, params, batch)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    out["prefill"] = {"batch": b, "seq": s, "wall_s": wall,
-                      "tokens_per_s": b * s / wall,
-                      "peak_bytes": torch.cuda.max_memory_allocated(),
-                      "finite": bool(torch.isfinite(last).all())}
-    if not out["prefill"]["finite"]:
-        failures.append("lm: prefill gave non-finite logits")
+    b, s = batch["tokens"].shape
+    return last, {"batch": b, "seq": s, "wall_s": wall,
+                  "tokens_per_s": b * s / wall,
+                  "peak_bytes": torch.cuda.max_memory_allocated(),
+                  "finite": bool(torch.isfinite(last).all())}
 
-    n_prompt, n_new, s_max = LM_DECODE
-    prompt = toks[:, :n_prompt]
-    cache = model_zoo.make_cache(cfg, b, s_max, device="cuda")
+
+def _cache_dtypes(cache):
+    from repro_torch.models import model_zoo
+    return {"/".join(path): str(a.dtype).split(".")[-1]
+            for path, a in model_zoo.leaves(cache)}
+
+
+def _consistency(logits, reference, bound, top1=True):
+    """Two logit tensors of one model, [rows, vocab] (the decode's against
+    prefill's, or the card's against the CPU's): the largest error,
+    whether every logit lies within ``bound`` of the reference's (atol /
+    rtol), and in how many rows the top-1 tokens are equal. ``ok`` needs
+    every logit within the bound and, with ``top1`` (the reference's
+    decode-vs-prefill check), the top-1 token equal in every row."""
+    import torch
+    a, b = logits.float().cpu(), reference.float().cpu()
+    within = bool(torch.allclose(a, b, **bound))
+    rows = int((a.argmax(-1) == b.argmax(-1)).sum())
+    return {"max_abs_err": _max_err(a, b), "bound": bound,
+            "within_bound": within, "top1_equal_rows": rows,
+            "rows": a.shape[0],
+            "ok": within and (rows == a.shape[0] or not top1)}
+
+
+def _decode_check(cfg, params, batch, n_prompt, cache):
+    """The first ``n_prompt`` tokens of ``batch`` through ``decode_step``
+    from ``cache``, and the last step's logits against ``prefill``'s on
+    the same tokens (``_consistency`` at the reference's bound): (the
+    logits, the cache, {consistency, prompt_ms_per_token,
+    cache_dtypes_after_step})."""
+    import torch
+    from repro_torch.models import model_zoo
+    toks = batch["tokens"]
     torch.cuda.synchronize()
     t0 = time.time()
     for t in range(n_prompt):
         logits, cache = model_zoo.decode_step(cfg, params, cache,
-                                              prompt[:, t:t + 1], t)
+                                              toks[:, t:t + 1], t)
+        if t == 0:
+            dtypes = _cache_dtypes(cache)
     torch.cuda.synchronize()
-    prompt_s = time.time() - t0
-    full = model_zoo.prefill(cfg, params, {"tokens": prompt})
-    consistent = bool(torch.allclose(logits, full, **LM_CONSISTENCY)
-                      and torch.equal(logits.argmax(-1), full.argmax(-1)))
-    out["consistency"] = {"max_abs_err": _max_err(logits, full),
-                          "bound": LM_CONSISTENCY, "top1_equal": bool(
-                              torch.equal(logits.argmax(-1),
-                                          full.argmax(-1))),
-                          "ok": consistent}
-    if not consistent:
-        failures.append(f"lm: decode logits at position {n_prompt - 1} "
-                        f"outside the reference's bound of prefill's: "
-                        f"{out['consistency']}")
+    prompt_ms = 1e3 * (time.time() - t0) / n_prompt
+    head = {k: (v[:, :n_prompt] if k == "tokens" else v)
+            for k, v in batch.items()}
+    check = dict(_consistency(logits, model_zoo.prefill(cfg, params, head),
+                              LM_CONSISTENCY),
+                 layers=cfg.num_layers, position=n_prompt - 1)
+    return logits, cache, {"consistency": check,
+                           "prompt_ms_per_token": prompt_ms,
+                           "cache_dtypes_after_step": dtypes}
+
+
+def _serve_lm(tag, cfg, params, batch, decode, cache=None, warm=None):
+    """The serving check of phases 12 and 13 on one model: the timed
+    ``prefill`` of ``batch`` (``_timed_prefill``); with ``decode`` =
+    (n_prompt, n_new, s_max), its first n_prompt tokens through
+    ``decode_step`` from ``cache`` (an empty one of s_max where None)
+    against prefill's on them (``_decode_check``), then n_new greedy
+    tokens (ms a token).
+    Returns (results: prefill, consistency, decode, cache dtypes after
+    step 0; failures: non-finite logits). The caller gates
+    ``consistency``."""
+    import torch
+    from repro_torch.models import model_zoo
+    n_prompt, n_new, s_max = decode
+    b = batch["tokens"].shape[0]
+    if cache is None:
+        cache = model_zoo.make_cache(cfg, b, s_max, device="cuda")
+    last, prefill = _timed_prefill(cfg, params, batch, warm)
+    if not prefill["finite"]:
+        return {"prefill": prefill}, [f"{tag}: prefill gave non-finite "
+                                      f"logits"]
+    del last
+    logits, cache, check = _decode_check(cfg, params, batch, n_prompt, cache)
     tok = logits.argmax(-1)[:, None]
     torch.cuda.synchronize()
     t0 = time.time()
@@ -2734,36 +2836,160 @@ def lm_dense(card):
                                               n_prompt + t)
         tok = logits.argmax(-1)[:, None]
     torch.cuda.synchronize()
-    new_s = time.time() - t0
-    out["decode"] = {"batch": b, "s_max": s_max,
-                     "prompt_ms_per_token": 1e3 * prompt_s / n_prompt,
-                     "greedy_ms_per_token": 1e3 * new_s / n_new,
-                     "finite": bool(torch.isfinite(logits).all())}
-    if not out["decode"]["finite"]:
-        failures.append("lm: decode gave non-finite logits")
-    del cache, full, last
+    steps = {"batch": b, "s_max": s_max,
+              "prompt_ms_per_token": check.pop("prompt_ms_per_token"),
+              "greedy_ms_per_token": 1e3 * (time.time() - t0) / n_new,
+              "finite": bool(torch.isfinite(logits).all())}
+    out = dict(check, prefill=prefill, decode=steps)
+    return out, ([] if steps["finite"]
+                 else [f"{tag}: decode gave non-finite logits"])
 
-    # The card against the port's CPU path, on the same weights.
-    vb, vs = LM_VS_CPU
-    small = toks[:vb, :vs]
-    on_card = model_zoo.forward(cfg, params, {"tokens": small})[0]
-    logits_card = model_zoo.prefill(cfg, params, {"tokens": small})
+
+def _vs_cpu(cfg, params, batch, bound, tf32_control=False):
+    """The card against the port's CPU path on the same weights and
+    batch: the hidden state (``forward``) and the last logits
+    (``prefill``), the logits held to ``bound`` (``_consistency``; the
+    top-1 rows are printed, not gated: bf16 rounding on two devices may
+    swap a near tie). With ``tf32_control``, the card's prefill once more
+    with TF32 matmuls allowed (a card path of lower precision than the
+    sound one; the setting is restored): its reading under the same
+    bound."""
+    import torch
+    from repro_torch.models import model_zoo
+    on_card = model_zoo.forward(cfg, params, batch)[0]
+    logits_card = model_zoo.prefill(cfg, params, batch)
+    control = None
+    if tf32_control:
+        with _tf32():
+            control = model_zoo.prefill(cfg, params, batch)
     t0 = time.time()
     cpu_params = _on_cpu(params)
-    on_cpu = model_zoo.forward(cfg, cpu_params, {"tokens": small.cpu()})[0]
-    logits_cpu = model_zoo.prefill(cfg, cpu_params, {"tokens": small.cpu()})
-    out["vs_cpu"] = {
-        "batch": vb, "seq": vs, "cpu_s": time.time() - t0,
-        "hidden_max_abs_err": _max_err(on_card, on_cpu),
-        "hidden_atol_2_layers": LM_HIDDEN_ATOL,
-        "logits_max_abs_err": _max_err(logits_card, logits_cpu),
-        "logits_atol_2_layers": LM_LOGIT_ATOL, "bound": LM_CONSISTENCY,
-        "ok": bool(torch.allclose(logits_card.cpu(), logits_cpu,
-                                  **LM_CONSISTENCY))}
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    on_cpu = model_zoo.forward(cfg, cpu_params, cpu_batch)[0]
+    logits_cpu = model_zoo.prefill(cfg, cpu_params, cpu_batch)
+    out = dict(_consistency(logits_card, logits_cpu, bound, top1=False),
+               layers=cfg.num_layers, batch=batch["tokens"].shape[0],
+               seq=batch["tokens"].shape[1], cpu_s=time.time() - t0,
+               hidden_max_abs_err=_max_err(on_card, on_cpu),
+               hidden_atol_cpu_tests=LM_HIDDEN_ATOL,
+               logits_atol_cpu_tests=LM_LOGIT_ATOL)
+    if control is not None:
+        out["tf32_control"] = _consistency(control, logits_cpu, bound,
+                                           top1=False)
+    return out
+
+
+@contextlib.contextmanager
+def _tf32():
+    """TF32 matmuls allowed inside, restored to off after: the control
+    that the card-vs-CPU checks of the f32 paths should see."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _linear_attn_vs_cpu(cfg, seq):
+    """``chunked_linear_attention`` alone, on the card and on the CPU, on
+    the same seeded f32 inputs at one layer of ``cfg``'s shapes (B 1 x
+    ``seq``). rwkv6: H heads of 64 with per-channel decays, strict, with
+    the bonus ``u`` at its init 0.5; zamba2: the Mamba heads, keys of
+    d_state broadcast over them, one decay per head, inclusive. Decays
+    are drawn so a chunk's |logp| reaches the model's own range. The
+    logits cannot see the recurrence's f32 einsums (bf16 rounding sets
+    their gap); this can: the largest error relative to the output's
+    largest value, sound and with TF32 matmuls allowed (the control)."""
+    import torch
+    from repro_torch.models import linear_attn, transformer
+    gen = torch.Generator().manual_seed(1)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen)
+
+    if cfg.family == "ssm":
+        h = cfg.num_heads
+        dk = dv = cfg.d_model // h
+        q, k, v = normal(1, seq, h, dk), normal(1, seq, h, dk), normal(
+            1, seq, h, dv)
+        log_w = -torch.exp(normal(1, seq, h, dk) * 0.5 - 0.5)
+        kw = {"u": torch.full((h, dk), 0.5)}
+    else:
+        dims = transformer.mamba_dims(cfg)
+        h, dk, dv = dims.num_heads, dims.d_state, dims.head_dim
+        q = normal(1, seq, 1, dk).expand(1, seq, h, dk)
+        k = normal(1, seq, 1, dk).expand(1, seq, h, dk)
+        v = normal(1, seq, h, dv)
+        log_w = -linear_attn.softplus(normal(1, seq, h, 1) - 2.0).expand(
+            1, seq, h, dk)
+        kw = {}
+
+    def run(device):
+        on = [a.to(device) for a in (q, k, v, log_w)]
+        y, s = linear_attn.chunked_linear_attention(
+            *on, **{n: a.to(device) for n, a in kw.items()})
+        return torch.cat([y.flatten(), s.flatten()]).cpu()
+
+    want = run("cpu")
+    got = run("cuda")
+    with _tf32():
+        control = run("cuda")
+    scale = float(want.abs().max())
+    return {"batch": 1, "seq": seq, "heads": h, "dk": dk, "dv": dv,
+            "rel_err": _max_err(got, want) / scale,
+            "tf32_control_rel_err": _max_err(control, want) / scale,
+            "rel_limit": FAM_LA_REL}
+
+
+def _lm_init(cfg):
+    """``cfg``'s parameters from ``init_params(seed=0)`` on the card, and
+    their count, bytes and init seconds."""
+    import torch
+    from repro_torch.models import model_zoo
+    t0 = time.time()
+    params = model_zoo.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    return params, dict(_lm_sizes(params), init_s=time.time() - t0)
+
+
+def _seeded_tokens(cfg, shape, gen):
+    import torch
+    return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                         dtype=torch.int32).cuda()
+
+
+def lm_dense(card):
+    """Phase 12, [lm]: smollm-360m at its registered width (32 layers,
+    d_model 960, 15 / 5 heads, head_dim 64, d_ff 2560, vocab 49152, tied)
+    from ``init_params(seed=0)`` on the card, through ``_serve_lm``:
+    prefill on LM_PREFILL seeded tokens, a LM_DECODE[0]-token prompt
+    through ``decode_step`` then LM_DECODE[1] greedy tokens at S_max
+    LM_DECODE[2], the decode's logits at the prompt's last position
+    against prefill's on the same tokens (the reference's consistency
+    bound, top-1 equal), and the card against the port's CPU path on the
+    same weights at LM_VS_CPU (the same bound). Returns (results,
+    failures)."""
+    import torch
+    from repro_torch import configs
+    cfg = configs.get_config(LM_ARCH)
+    params, sizes = _lm_init(cfg)
+    b, s = LM_PREFILL
+    toks = _seeded_tokens(cfg, (b, s), torch.Generator().manual_seed(0))
+    served, failures = _serve_lm("lm", cfg, params, {"tokens": toks},
+                                 LM_DECODE, warm={"tokens": toks[:1, :128]})
+    out = dict({"card": card}, **sizes, **served)
+    if not failures and not out["consistency"]["ok"]:
+        failures.append(f"lm: decode logits at position {LM_DECODE[0] - 1} "
+                        f"outside the reference's bound of prefill's: "
+                        f"{out['consistency']}")
+    vb, vs = LM_VS_CPU
+    out["vs_cpu"] = _vs_cpu(cfg, params, {"tokens": toks[:vb, :vs]},
+                            LM_CONSISTENCY)
     if not out["vs_cpu"]["ok"]:
         failures.append(f"lm: the card's logits outside the reference's "
                         f"bound of the CPU's: {out['vs_cpu']}")
-    del cpu_params, params
+    del params
     torch.cuda.empty_cache()
     print(f"[lm] {cfg.name} {out}", flush=True)
     return out, failures
@@ -2780,36 +3006,22 @@ def lm_moe(card, layers):
     import torch
     from repro_torch import configs
     from repro_torch.models import model_zoo
-    out, failures = {"card": card, "layers": layers}, []
     full = configs.get_config(MOE_ARCH)
     cfg = full.scaled(num_layers=layers)
-    t0 = time.time()
-    params = model_zoo.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    out.update(_lm_sizes(params), init_s=time.time() - t0)
+    params, sizes = _lm_init(cfg)
+    out, failures = dict({"card": card, "layers": layers}, **sizes), []
     print(f"[lm-moe] CUT {cfg.name}: {layers} of {full.num_layers} layers "
           f"at full width ({out['params'] / 1e9:.2f} B parameters, "
           f"{out['bytes'] / 1e9:.1f} GB in f32; all 48 would need "
           f"~{out['bytes'] / layers * full.num_layers / 1e9:.0f} GB, more "
           f"than the card holds)", flush=True)
-    gen = torch.Generator().manual_seed(1)
     b, s = MOE_PREFILL
-    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                         dtype=torch.int32).cuda()
-    model_zoo.prefill(cfg, params, {"tokens": toks[:1, :64]})   # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    last = model_zoo.prefill(cfg, params, {"tokens": toks})
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    toks = _seeded_tokens(cfg, (b, s), torch.Generator().manual_seed(1))
+    last, out["prefill"] = _timed_prefill(cfg, params, {"tokens": toks},
+                                          warm={"tokens": toks[:1, :64]})
     _, _, metrics = model_zoo.forward(cfg, params, {"tokens": toks})
-    out["prefill"] = {"batch": b, "seq": s, "wall_s": wall,
-                      "tokens_per_s": b * s / wall,
-                      "peak_bytes": torch.cuda.max_memory_allocated(),
-                      "finite": bool(torch.isfinite(last).all()),
-                      "moe_drop_frac": float(metrics["moe_drop_frac"]),
-                      "moe_aux_loss": float(metrics["moe_aux_loss"])}
+    out["prefill"].update(moe_drop_frac=float(metrics["moe_drop_frac"]),
+                          moe_aux_loss=float(metrics["moe_aux_loss"]))
     cache = model_zoo.make_cache(cfg, b, MOE_DECODE, device="cuda")
     torch.cuda.synchronize()
     t0 = time.time()
@@ -3044,6 +3256,228 @@ def lm_phase(card):
     out["wall_s"] = time.time() - t_start
     print(f"[lm] phase 12 took {out['wall_s']:.1f}s", flush=True)
     return out, launches, failures, shapes
+
+
+def _family_slice(params, cfg):
+    """The parameters of ``cfg``'s depth (an RWKV or zamba config scaled
+    down from the one ``params`` was made for), as views: the first
+    layers of the blocks, or the first groups and tail layers."""
+    if cfg.family == "ssm":
+        return dict(params, blocks=_sliced(params["blocks"], cfg.num_layers))
+    n_groups, tail = divmod(cfg.num_layers, cfg.attn_every)
+    out = {k: v for k, v in params.items() if k != "tail"}
+    out["groups"] = _sliced(params["groups"], n_groups)
+    if tail:
+        out["tail"] = _sliced(params["tail"], tail)
+    return out
+
+
+def _max_logp(cfg, params, batch):
+    """The largest |logp| (a chunk's summed log-decay) of any chunk of the
+    linear attention in one ``prefill`` of ``batch``, and the number of
+    chunks: read in a run of its own, outside the timed prefill."""
+    import torch
+    from repro_torch.models import linear_attn, model_zoo
+    linear_attn.LOGP_MAX = []
+    try:
+        model_zoo.prefill(cfg, params, batch)
+        return (float(torch.stack(linear_attn.LOGP_MAX).max()),
+                len(linear_attn.LOGP_MAX))
+    finally:
+        linear_attn.LOGP_MAX = None
+
+
+def lm_recurrent(card, arch, tag, cut):
+    """Phase 13, [lm-ssm] / [lm-hybrid]: ``arch`` at its registered width
+    and depth (``cut``: FAM_CUT_LAYERS instead, with a CUT line) from
+    ``init_params(seed=0)`` on the card, through ``_serve_lm``: prefill on
+    FAM_PREFILL seeded tokens (wall, tokens/s; the largest |logp| of any
+    chunk read in a prefill of its own), a FAM_DECODE[0]-token prompt
+    through ``decode_step`` then FAM_DECODE[1] greedy tokens at S_max
+    FAM_DECODE[2]. At this depth the decode's logits at the prompt's last
+    position against prefill's are printed, with a FLAG line outside the
+    reference's bound: there the reference's own decode misses it too
+    (tests/test_torch_models.py::test_*_decode_prefill_gap_at_depth_is_
+    the_references). The gates run at full width and
+    FAM_GATE_LAYERS[arch] layers: the decode against prefill on the same
+    prompt (the reference's bound, top-1 equal), and the card against
+    the port's CPU path on the same weights on FAM_VS_CPU (logits within
+    FAM_VS_CPU_BOUND; a TF32 control beside it), and the chunked linear
+    attention alone on the card against the CPU within FAM_LA_REL
+    (``_linear_attn_vs_cpu``; a FLAG line where its TF32 control lies
+    within it too). Returns (results, failures)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    full = configs.get_config(arch)
+    cfg = full.scaled(num_layers=FAM_CUT_LAYERS[arch]) if cut else full
+    params, sizes = _lm_init(cfg)
+    out = dict({"card": card, "layers": cfg.num_layers,
+                "d_model": cfg.d_model}, **sizes)
+    if cut:
+        print(f"[{tag}] CUT {arch}: {cfg.num_layers} of {full.num_layers} "
+              f"layers at full width: the script had run past "
+              f"{FAM_CUT_AT:.0f} s of its 1200 s", flush=True)
+    print(f"[{tag}] {arch}: {out['params']:,} parameters, "
+          f"{out['bytes'] / 1e9:.2f} GB in f32", flush=True)
+    toks = _seeded_tokens(cfg, FAM_PREFILL, torch.Generator().manual_seed(0))
+    served, failures = _serve_lm(tag, cfg, params, {"tokens": toks},
+                                 FAM_DECODE, warm={"tokens": toks[:1, :64]})
+    out.update(served)
+    if failures:
+        return out, failures
+    out["prefill"]["max_abs_logp"], out["prefill"]["chunks"] = _max_logp(
+        cfg, params, {"tokens": toks})
+    out["cache_dtypes_empty"] = _cache_dtypes(model_zoo.make_cache(
+        cfg, 1, 1, device="cuda"))
+    print(f"[{tag}] prefill {out['prefill']}", flush=True)
+    depth = out["consistency"]
+    if not depth["ok"]:
+        print(f"[{tag}] FLAG: at {cfg.num_layers} layers the decode's "
+              f"logits at position {depth['position']} lie "
+              f"{depth['max_abs_err']:.4f} from prefill's, top-1 equal in "
+              f"{depth['top1_equal_rows']} of {depth['rows']} rows: outside "
+              f"the reference's bound, as the reference's own decode is at "
+              f"this depth on the CPU; gated at {FAM_GATE_LAYERS[arch]} "
+              f"layers below", flush=True)
+
+    # The gates, at full width and FAM_GATE_LAYERS[arch] layers.
+    small_cfg = full.scaled(num_layers=FAM_GATE_LAYERS[arch])
+    sp = _family_slice(params, small_cfg)
+    prompt = {"tokens": toks[:, :FAM_DECODE[0]]}
+    _, _, gate = _decode_check(small_cfg, sp, prompt, FAM_DECODE[0],
+                               model_zoo.make_cache(small_cfg, FAM_PREFILL[0],
+                                                    FAM_DECODE[2],
+                                                    device="cuda"))
+    out["consistency_gate"] = gate = gate["consistency"]
+    if not gate["ok"]:
+        failures.append(f"{tag}: decode logits at position "
+                        f"{gate['position']} outside the reference's bound "
+                        f"of prefill's at {small_cfg.num_layers} layers: "
+                        f"{gate}")
+    vb, vs = FAM_VS_CPU
+    out["vs_cpu"] = _vs_cpu(small_cfg, sp, {"tokens": toks[:vb, :vs]},
+                            FAM_VS_CPU_BOUND, tf32_control=True)
+    if not out["vs_cpu"]["ok"]:
+        failures.append(f"{tag}: the card's logits outside "
+                        f"{FAM_VS_CPU_BOUND} of the CPU's: {out['vs_cpu']}")
+    out["linear_attn_vs_cpu"] = la = _linear_attn_vs_cpu(cfg, FAM_PREFILL[1])
+    if la["rel_err"] > FAM_LA_REL:
+        failures.append(f"{tag}: the card's chunked linear attention lies "
+                        f"outside {FAM_LA_REL} (relative) of the CPU's: {la}")
+    if la["tf32_control_rel_err"] <= FAM_LA_REL:
+        print(f"[{tag}] FLAG: the TF32 control of the chunked linear "
+              f"attention lies within {FAM_LA_REL} of the CPU's: {la}",
+              flush=True)
+    del params, sp
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {arch} {out}", flush=True)
+    return out, failures
+
+
+def lm_audio(card):
+    """Phase 13, [lm-audio]: whisper-base at its registered width and depth
+    (6 encoder and 6 decoder layers, d_model 512, 8 heads, GELU MLP, vocab
+    51865, 1500 frames of 512) from ``init_params(seed=0)`` on the card:
+    ``encode_audio`` on AUDIO_BATCH x 1500 seeded stub frames (timed after
+    a warm-up prefill); the cross cache filled from the encoder output,
+    layer by layer ((enc @ bf16(cross.wk[l])) as [B, T, Hkv, Dh], and wv);
+    then ``_serve_lm``: ``prefill`` on the frames and AUDIO_TOKENS decoder
+    tokens, the decode at position 0 from the filled cache against a
+    1-token prefill on the same frames (the reference adds position 0's
+    encoding at every decode step, so only position 0 compares; the
+    reference's bound, top-1 equal), and AUDIO_DECODE greedy tokens at
+    S_max AUDIO_TOKENS; and the card against the CPU path at full depth
+    on AUDIO_VS_CPU (FAM_VS_CPU_BOUND; a TF32 control beside it).
+    Returns (results, failures)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo, transformer
+    cfg = configs.get_config(AUDIO_ARCH)
+    tag = "lm-audio"
+    params, sizes = _lm_init(cfg)
+    out = dict({"card": card}, **sizes)
+    print(f"[{tag}] {AUDIO_ARCH}: {out['params']:,} parameters, "
+          f"{out['bytes'] / 1e9:.3f} GB in f32", flush=True)
+    gen = torch.Generator().manual_seed(0)
+    b, s, nf = AUDIO_BATCH, AUDIO_TOKENS, cfg.frontend_len
+    toks = _seeded_tokens(cfg, (b, s), gen)
+    frames = torch.randn((b, nf, cfg.frontend_dim), generator=gen
+                         ).to(torch.bfloat16).cuda()
+    model_zoo.prefill(cfg, params, {"tokens": toks[:1, :8],
+                                    "frames": frames[:1]})   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    enc = model_zoo.encode_audio(cfg, params, frames)
+    torch.cuda.synchronize()
+    enc_s = time.time() - t0
+    out["encode"] = {"batch": b, "frames": nf, "wall_s": enc_s,
+                     "frames_per_s": b * nf / enc_s,
+                     "finite": bool(torch.isfinite(enc).all())}
+    if not out["encode"]["finite"]:
+        return out, [f"{tag}: non-finite encoder output"]
+    dims = transformer.attn_dims(cfg)
+    cache = model_zoo.make_cache(cfg, b, s, device="cuda")
+    for name, w in (("ck", "wk"), ("cv", "wv")):
+        for l in range(cfg.num_layers):
+            cache[name][l] = (enc @ params["blocks"]["cross"][w][l].to(
+                torch.bfloat16)).reshape(b, nf, dims.num_kv_heads,
+                                         dims.head_dim)
+    del enc
+    served, failures = _serve_lm(tag, cfg, params,
+                                 {"tokens": toks, "frames": frames},
+                                 (1, AUDIO_DECODE, s), cache=cache)
+    out.update(served)
+    out["prefill"]["frames"] = nf
+    print(f"[{tag}] encode {out['encode']} prefill {out['prefill']}",
+          flush=True)
+    if failures:
+        return out, failures
+    if not out["consistency"]["ok"]:
+        failures.append(f"{tag}: decode logits at position 0 outside the "
+                        f"reference's bound of a 1-token prefill's: "
+                        f"{out['consistency']}")
+    vb, vs = AUDIO_VS_CPU
+    out["vs_cpu"] = dict(_vs_cpu(cfg, params, {"tokens": toks[:vb, :vs],
+                                               "frames": frames[:vb]},
+                                 FAM_VS_CPU_BOUND, tf32_control=True),
+                         encoder_layers=cfg.encoder_layers, frames=nf)
+    if not out["vs_cpu"]["ok"]:
+        failures.append(f"{tag}: the card's logits outside "
+                        f"{FAM_VS_CPU_BOUND} of the CPU's: {out['vs_cpu']}")
+    del params
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {AUDIO_ARCH} {out}", flush=True)
+    return out, failures
+
+
+def lm_families_phase(card):
+    """Phase 13: [lm-ssm], [lm-hybrid] and [lm-audio], one model at a
+    time (each freed before the next). Past FAM_CUT_AT seconds of the
+    script the recurrent stacks run FAM_CUT_LAYERS. The kernels' counts
+    are zeroed before and read after. Returns (results, launches by
+    kernel, failures)."""
+    import torch
+    from repro_torch.kernels import cuda
+    t_start = time.time()
+    cut = t_start - T_START > FAM_CUT_AT
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    out, failures = {"cut": cut}, []
+    for key, arch, tag in (("ssm", SSM_ARCH, "lm-ssm"),
+                           ("hybrid", HYBRID_ARCH, "lm-hybrid")):
+        out[key], more = lm_recurrent(card, arch, tag, cut)
+        failures += more
+        torch.cuda.empty_cache()
+    out["audio"], more = lm_audio(card)
+    failures += more
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    out["launches"] = launches
+    out["wall_s"] = time.time() - t_start
+    print(f"[lm-families] launches {launches}; phase 13 took "
+          f"{out['wall_s']:.1f}s", flush=True)
+    return out, launches, failures
 
 
 def main() -> int:
@@ -3615,6 +4049,11 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     phase_done("12 lm")
+    # -- 13. the remaining LM families ----------------------------------------
+    fam_out, fam_launches, failures = lm_families_phase(card)
+    if failures:
+        return fail("; ".join(failures))
+    phase_done("13 lm families")
     print(f"[main] phase wall s {walls}", flush=True)
 
     extra_shapes = {name: [] for name in _build.KERNELS}
@@ -3638,7 +4077,8 @@ def main() -> int:
                    "sharded": shard_launches[row["name"]],
                    "quickstart": quick_launches[row["name"]],
                    "audit": audit_launches[row["name"]],
-                   "rag": rag_launches[row["name"]]}
+                   "rag": rag_launches[row["name"]],
+                   "lm_families": fam_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
@@ -3650,7 +4090,8 @@ def main() -> int:
            "competitors_path": compete_out, "cold_path": cold_out,
            "cold_shard_path": cshard_out, "sharded_path": shard_out,
            "quickstart_path": quick_out, "audit_path": audit_out,
-           "lm_path": lm_out, "kernels": kernels, "launches": launches,
+           "lm_path": lm_out, "lm_families_path": fam_out,
+           "kernels": kernels, "launches": launches,
            "hnsw_launches": hnsw_launches, "serve_launches": serve_launches,
            "mutate_launches": mutate_launches,
            "competitors_launches": compete_launches,
@@ -3658,7 +4099,8 @@ def main() -> int:
            "cold_shard_launches": cshard_launches,
            "sharded_launches": shard_launches,
            "quickstart_launches": quick_launches,
-           "audit_launches": audit_launches, "rag_launches": rag_launches}
+           "audit_launches": audit_launches, "rag_launches": rag_launches,
+           "lm_families_launches": fam_launches}
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
     with open(os.path.join(HERE, "results", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1, default=float)
@@ -3673,6 +4115,7 @@ def main() -> int:
     print(json.dumps({"quickstart_path": quick_out}, default=float))
     print(json.dumps({"audit_path": audit_out}, default=float))
     print(json.dumps({"lm_path": lm_out}, default=float))
+    print(json.dumps({"lm_families_path": fam_out}, default=float))
     print(json.dumps({"kernels": kernels}, default=float))
     print(f"[main] chip_smoke.py took {time.time() - T_START:.1f}s",
           flush=True)

@@ -1,7 +1,7 @@
 """Transformer layers on PyTorch (a port of the reference's
 ``repro/models/layers.py``): norms, RoPE, GQA attention (chunked
-flash-style prefill and KV-cache decode), the SwiGLU / GELU MLP, the
-embedding and the output projection.
+flash-style prefill and KV-cache decode), cross-attention, the SwiGLU /
+GELU MLP, the embedding and the output projection.
 
 Pure functions over parameter dicts. The reference computes attention
 and the MLPs in plain ``jnp`` (no Pallas kernel), so the products here
@@ -257,6 +257,22 @@ def gqa_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
     return out.reshape(b, 1, h * dh) @ params["wo"], cache_k, cache_v
 
 
+def cross_attention(params: Params, x: torch.Tensor, enc: torch.Tensor,
+                    dims: AttnDims, chunk: int = 512) -> torch.Tensor:
+    """Encoder-decoder cross attention (whisper). x: [B,S,d], enc: [B,T,d];
+    non-causal over all T (the last KV chunk padded and masked)."""
+    b, s, _ = x.shape
+    t = enc.shape[1]
+    h, kv, dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, dh)
+    k = (enc @ params["wk"]).reshape(b, t, kv, dh)
+    v = (enc @ params["wv"]).reshape(b, t, kv, dh)
+    k = _repeat_kv(k, h // kv)
+    v = _repeat_kv(v, h // kv)
+    out = chunked_attention(q, k, v, causal=False, chunk=chunk)
+    return out.reshape(b, s, h * dh) @ params["wo"]
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -268,10 +284,16 @@ def mlp_params_shape(d_model: int, d_ff: int, kind: str = "swiglu"):
             "wo": (d_ff, d_model)}
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (``lax.logistic``) as XLA expands it: neg, exp,
+    add, divide, each step rounded to x's dtype."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as its jaxpr runs it: logistic (neg, exp, add,
-    divide), then a multiply, each step rounded to x's dtype."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """``jax.nn.silu`` as its jaxpr runs it: logistic, then a multiply,
+    each step rounded to x's dtype."""
+    return x * sigmoid(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

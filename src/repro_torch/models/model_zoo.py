@@ -1,36 +1,36 @@
 """Model zoo: ArchConfig -> parameter trees, init, and the serving entry
-points (forward, prefill, the KV cache and one decode step), a port of
-the reference's ``repro/models/model_zoo.py`` for the attention families
-(dense, VLM backbone, MoE).
+points (forward, prefill, the decode cache and one decode step), a port
+of the reference's ``repro/models/model_zoo.py`` for all six families:
+
+  dense / vlm-backbone / moe : pre-norm GQA attention + SwiGLU-or-MoE FFN
+  ssm (rwkv6)                : time-mix + channel-mix
+  hybrid (zamba2)            : Mamba2 backbone, one SHARED attention block
+                               applied after every `attn_every` Mamba layers
+  audio (whisper)            : enc-dec, sinusoidal positions, cross-attn
 
 Parameters are nested dicts of tensors with the reference's names and
 its stacked leading layer axis, so the reference's tree carries across
 leaf for leaf (``repro_torch.convert.lm_params``). Storage is f32, bf16
 for kimi; the blocks compute in bf16, the logits in f32.
 
-Not ported here: the ``ssm`` (rwkv6), ``hybrid`` (zamba2) and ``audio``
-(whisper) families, which raise NotImplementedError (ROADMAP Queue 1
-item 4.2), and training (``loss_fn``, ``chunked_ce_loss``; item 4.3).
+Not ported here: training (``loss_fn``, ``chunked_ce_loss``; ROADMAP
+Queue 1 item 4.3) and the dry-run's ``input_specs`` / ``abstract_params``
+(item 4.4).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import layers, moe as moe_lib, transformer
+from repro_torch.models import layers, linear_attn, moe as moe_lib
+from repro_torch.models import transformer
 
 Params = Dict[str, Any]
-PORTED_FAMILIES = ("dense", "moe", "vlm")
 COMPUTE = torch.bfloat16
-
-
-def _ported(cfg: ArchConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"PyTorch yet (ROADMAP Queue 1 item 4.2)")
 
 
 # ---------------------------------------------------------------------------
@@ -41,13 +41,17 @@ def _norm_shape(cfg: ArchConfig):
     return None if cfg.norm == "nonparam_ln" else {"scale": (cfg.d_model,)}
 
 
-def _attn_block_shapes(cfg: ArchConfig):
+def _attn_block_shapes(cfg: ArchConfig, cross: bool = False):
     d = cfg.d_model
     s: Dict[str, Any] = {}
     if _norm_shape(cfg):
         s["attn_norm"] = _norm_shape(cfg)
         s["mlp_norm"] = _norm_shape(cfg)
     s["attn"] = layers.attn_params_shape(d, transformer.attn_dims(cfg))
+    if cross:
+        if _norm_shape(cfg):
+            s["cross_norm"] = _norm_shape(cfg)
+        s["cross"] = layers.attn_params_shape(d, transformer.attn_dims(cfg))
     if cfg.num_experts:
         s["moe"] = moe_lib.moe_params_shape(d, cfg.moe_d_ff or cfg.d_ff,
                                             cfg.num_experts)
@@ -56,23 +60,57 @@ def _attn_block_shapes(cfg: ArchConfig):
     return s
 
 
+def _rwkv_block_shapes(cfg: ArchConfig):
+    dims = transformer.rwkv_dims(cfg)
+    shapes = linear_attn.rwkv6_params_shape(dims)
+    cm = ("mu_ck", "mu_cr", "ck", "cv", "cr")
+    return {"attn_norm": _norm_shape(cfg), "mlp_norm": _norm_shape(cfg),
+            "time_mix": {k: v for k, v in shapes.items() if k not in cm},
+            "channel_mix": {k: shapes[k] for k in cm}}
+
+
+def _mamba_block_shapes(cfg: ArchConfig):
+    return {"attn_norm": _norm_shape(cfg), "mamba":
+            linear_attn.mamba2_params_shape(transformer.mamba_dims(cfg))}
+
+
 def _stack(shapes, n: int):
     return {k: _stack(v, n) if isinstance(v, dict) else (n,) + v
-            for k, v in shapes.items()}
+            for k, v in shapes.items() if v is not None}
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
     """Nested dict of shape tuples for the full model."""
-    _ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     tree: Dict[str, Any] = {"embed": (v, d)}
     if not cfg.tie_embeddings:
         tree["out_head"] = (v, d)
     if _norm_shape(cfg):
         tree["final_norm"] = _norm_shape(cfg)
-    tree["blocks"] = _stack(_attn_block_shapes(cfg), cfg.num_layers)
-    if cfg.family == "vlm":
-        tree["connector"] = (cfg.frontend_dim, d)
+    if cfg.family in ("dense", "moe", "vlm"):
+        tree["blocks"] = _stack(_attn_block_shapes(cfg), cfg.num_layers)
+        if cfg.family == "vlm":
+            tree["connector"] = (cfg.frontend_dim, d)
+    elif cfg.family == "ssm":
+        tree["blocks"] = _stack(_rwkv_block_shapes(cfg), cfg.num_layers)
+    elif cfg.family == "hybrid":
+        g = cfg.attn_every
+        n_groups, tail = divmod(cfg.num_layers, g)
+        tree["groups"] = _stack(_stack(_mamba_block_shapes(cfg), g),
+                                n_groups)
+        if tail:
+            tree["tail"] = _stack(_mamba_block_shapes(cfg), tail)
+        tree["shared_attn"] = _attn_block_shapes(cfg)
+    elif cfg.family == "audio":
+        tree["blocks"] = _stack(_attn_block_shapes(cfg, cross=True),
+                                cfg.num_layers)
+        tree["encoder"] = {
+            "blocks": _stack(_attn_block_shapes(cfg), cfg.encoder_layers),
+            "in_proj": (cfg.frontend_dim, d)}
+        if _norm_shape(cfg):
+            tree["encoder"]["final_norm"] = _norm_shape(cfg)
+    else:
+        raise ValueError(cfg.family)
     return tree
 
 
@@ -132,14 +170,51 @@ def _out_table(cfg: ArchConfig, params: Params) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["out_head"]
 
 
+def _sinusoidal(s: int, d: int) -> np.ndarray:
+    pos = np.arange(s)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    return np.concatenate([np.sin(ang), np.cos(ang)],
+                          axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _positions(s: int, d: int, dtype: torch.dtype, device: torch.device
+               ) -> torch.Tensor:
+    """_sinusoidal(s, d) in ``dtype`` on ``device``, made once: a decode
+    step would otherwise copy it to the card every token."""
+    return torch.as_tensor(_sinusoidal(s, d), device=device).to(dtype)
+
+
+def _add_positions(x: torch.Tensor, s: int) -> torch.Tensor:
+    """x + the first ``s`` sinusoidal positions, rounded to x's dtype."""
+    return x + _positions(s, x.shape[-1], x.dtype, x.device)
+
+
+def encode_audio(cfg: ArchConfig, params: Params,
+                 frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings [B, F, Df] -> [B, F, d]
+    bf16: the input projection, sinusoidal positions, non-causal blocks,
+    the final norm."""
+    enc_p = params["encoder"]
+    x = frames.to(COMPUTE) @ enc_p["in_proj"].to(COMPUTE)
+    x = _add_positions(x, x.shape[1])
+    for l in range(cfg.encoder_layers):
+        x, _ = transformer.attn_block(cfg, transformer.layer(
+            enc_p["blocks"], l), x, causal=False)
+    return layers.apply_norm(cfg.norm, x, enc_p.get("final_norm"))
+
+
 def _embed_inputs(cfg: ArchConfig, params: Params,
                   batch: Dict[str, torch.Tensor]
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(x [B, S, d] bf16, loss weights or None). The VLM's patches go
-    through the connector and take the sequence's first P positions
-    (weight 0); the text's last P tokens drop off."""
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                             Optional[torch.Tensor]]:
+    """(x [B, S, d] bf16, loss weights or None, encoder output or None).
+    The VLM's patches go through the connector and take the sequence's
+    first P positions (weight 0); the text's last P tokens drop off. The
+    audio family's "frames" go through ``encode_audio``."""
     x = layers.embed(batch["tokens"], params["embed"]).to(COMPUTE)
-    weights = None
+    weights = enc = None
     if cfg.family == "vlm":
         patches = batch["patches"].to(COMPUTE)                # [B, P, Dv]
         proj = patches @ params["connector"].to(COMPUTE)
@@ -149,7 +224,9 @@ def _embed_inputs(cfg: ArchConfig, params: Params,
             [torch.zeros((x.shape[0], p), device=x.device),
              torch.ones((x.shape[0], x.shape[1] - p), device=x.device)],
             dim=1)
-    return x, weights
+    elif cfg.family == "audio":
+        enc = encode_audio(cfg, params, batch["frames"])
+    return x, weights, enc
 
 
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -158,11 +235,28 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
                        Dict[str, torch.Tensor]]:
     """Full causal forward -> (hidden [B, S, d] bf16, loss weights,
     metrics). ``batch`` holds "tokens" [B, S] (and "patches" [B, P, Dv]
-    for a VLM) on the parameters' device."""
-    _ported(cfg)
-    x, weights = _embed_inputs(cfg, params, batch)
-    x, metrics = transformer.dense_stack(cfg, params["blocks"], x,
-                                         causal=True, chunk=chunk)
+    for a VLM, "frames" [B, F, Df] for audio) on the parameters' device.
+    ``chunk`` is the attention's KV chunk; the linear attention's is 64
+    (the sequence a multiple of it, or shorter)."""
+    x, weights, enc = _embed_inputs(cfg, params, batch)
+    metrics: Dict[str, torch.Tensor] = {}
+    if cfg.family in ("dense", "moe", "vlm"):
+        x, metrics = transformer.dense_stack(cfg, params["blocks"], x,
+                                             causal=True, chunk=chunk)
+    elif cfg.family == "ssm":
+        if cfg.rope_theta == 0:
+            x = _add_positions(x, x.shape[1])
+        x = transformer.rwkv_stack(cfg, params["blocks"], x)
+    elif cfg.family == "hybrid":
+        x = transformer.zamba_stack(cfg, params, x, attn_chunk=chunk)
+    elif cfg.family == "audio":
+        x = _add_positions(x, x.shape[1])
+        for l in range(cfg.num_layers):
+            x, _ = transformer.attn_block(
+                cfg, transformer.layer(params["blocks"], l), x, enc=enc,
+                causal=True, chunk=chunk)
+    else:
+        raise ValueError(cfg.family)
     x = layers.apply_norm(cfg.norm, x, params.get("final_norm"))
     return x, weights, metrics
 
@@ -184,27 +278,127 @@ def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def make_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda"
-               ) -> Dict[str, torch.Tensor]:
-    """A zeroed bf16 KV cache {"k", "v"}: [L, B, max_seq, Hkv, Dh] each."""
-    _ported(cfg)
+               ) -> Dict[str, Any]:
+    """A zeroed decode cache, the reference's tree:
+
+    - dense / moe / vlm: bf16 K/V {"k", "v"} [L, B, max_seq, Hkv, Dh];
+    - audio: those and the cross cache {"ck", "cv"} [L, B, frontend_len,
+      Hkv, Dh] (zeros: the caller fills it with the encoder's K/V);
+    - ssm: f32 {"att_shift", "ffn_shift"} [L, B, d] and "wkv"
+      [L, B, H, hd, hd] (the shifts come back bf16 from a step);
+    - hybrid: f32 {"groups": {"ssm" [G, g, B, H, d_state, hd], "conv"
+      [G, g, B, W-1, d_inner + 2 d_state]}}, bf16 "shared_k" / "shared_v"
+      [G, B, max_seq, Hkv, Dh] (one K/V per application of the shared
+      block), and "tail" like "groups" without G when g leaves one."""
     dims = transformer.attn_dims(cfg)
-    kv = (cfg.num_layers, batch, max_seq, dims.num_kv_heads, dims.head_dim)
-    return {"k": torch.zeros(kv, dtype=COMPUTE, device=device),
-            "v": torch.zeros(kv, dtype=COMPUTE, device=device)}
+
+    def mk(shape, dtype=COMPUTE):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    f32 = torch.float32
+    n = cfg.num_layers
+    kv = (n, batch, max_seq, dims.num_kv_heads, dims.head_dim)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return {"k": mk(kv), "v": mk(kv)}
+    if cfg.family == "audio":
+        ckv = (n, batch, cfg.frontend_len, dims.num_kv_heads, dims.head_dim)
+        return {"k": mk(kv), "v": mk(kv), "ck": mk(ckv), "cv": mk(ckv)}
+    if cfg.family == "ssm":
+        rd = transformer.rwkv_dims(cfg)
+        return {"att_shift": mk((n, batch, cfg.d_model), f32),
+                "ffn_shift": mk((n, batch, cfg.d_model), f32),
+                "wkv": mk((n, batch, rd.num_heads, rd.head_dim,
+                           rd.head_dim), f32)}
+    if cfg.family == "hybrid":
+        md = transformer.mamba_dims(cfg)
+        g = cfg.attn_every
+        n_groups, tail = divmod(n, g)
+        conv_c = md.d_inner + 2 * md.d_state
+
+        def mamba_state(*lead):
+            return {"ssm": mk(lead + (batch, md.num_heads, md.d_state,
+                                      md.head_dim), f32),
+                    "conv": mk(lead + (batch, md.conv_width - 1, conv_c),
+                               f32)}
+        shared = (n_groups, batch, max_seq, dims.num_kv_heads, dims.head_dim)
+        cache = {"groups": mamba_state(n_groups, g),
+                 "shared_k": mk(shared), "shared_v": mk(shared)}
+        if tail:
+            cache["tail"] = mamba_state(tail)
+        return cache
+    raise ValueError(cfg.family)
 
 
-def decode_step(cfg: ArchConfig, params: Params,
-                cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                pos: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _mamba_decode_into(cfg: ArchConfig, blocks: Params, x: torch.Tensor,
+                       state: Dict[str, torch.Tensor], n: int
+                       ) -> torch.Tensor:
+    """``n`` Mamba blocks for one token, each block's new state written
+    into ``state``'s [n, ...] tensors in place."""
+    for l in range(n):
+        x, st = transformer.mamba_block_decode(
+            cfg, transformer.layer(blocks, l), x,
+            {"ssm": state["ssm"][l], "conv": state["conv"][l]})
+        state["ssm"][l] = st["ssm"]
+        state["conv"][l] = st["conv"]
+    return x
+
+
+def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
+                tokens: torch.Tensor, pos: int
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One-token serve step. tokens: [B, 1]; pos: the current length, a
-    Python int. Writes the token's K/V into ``cache`` in place (the
-    reference returns a new cache; under jit with donation it writes in
-    place too) and returns (logits [B, V] f32, cache)."""
-    _ported(cfg)
+    Python int. Returns (logits [B, V] f32, the new cache).
+
+    Every state whose dtype a step keeps is written into ``cache`` in
+    place (the reference returns a new cache; under jit with donation it
+    writes in place too): the K/V at ``pos``, the RWKV ``wkv`` and the
+    Mamba states. The RWKV shifts are new tensors: a step returns them in
+    the compute dtype, bf16, whatever the cache held (f32 zeros from
+    ``make_cache``), as the reference's does. The audio family adds the
+    sinusoidal position 0's encoding at every step, as the reference
+    does."""
     x = layers.embed(tokens, params["embed"]).to(COMPUTE)
-    for l in range(cfg.num_layers):
-        x, _ = transformer.attn_block_decode(
-            cfg, transformer.layer(params["blocks"], l), x,
-            {"k": cache["k"][l], "v": cache["v"][l]}, pos)
+    n = cfg.num_layers
+    layer = transformer.layer
+    new_cache = cache
+    if cfg.family in ("dense", "moe", "vlm"):
+        for l in range(n):
+            x, _ = transformer.attn_block_decode(
+                cfg, layer(params["blocks"], l), x,
+                {"k": cache["k"][l], "v": cache["v"][l]}, pos)
+    elif cfg.family == "audio":
+        x = _add_positions(x, 1)
+        for l in range(n):
+            x, _ = transformer.attn_block_decode(
+                cfg, layer(params["blocks"], l), x,
+                {"k": cache["k"][l], "v": cache["v"][l]}, pos,
+                enc_kv=(cache["ck"][l], cache["cv"][l]))
+    elif cfg.family == "ssm":
+        att, ffn = [], []
+        for l in range(n):
+            x, st = transformer.rwkv_block_decode(
+                cfg, layer(params["blocks"], l), x,
+                {"att_shift": cache["att_shift"][l],
+                 "ffn_shift": cache["ffn_shift"][l],
+                 "wkv": cache["wkv"][l]})
+            cache["wkv"][l] = st["wkv"]
+            att.append(st["att_shift"])
+            ffn.append(st["ffn_shift"])
+        new_cache = dict(cache, att_shift=torch.stack(att),
+                         ffn_shift=torch.stack(ffn))
+    elif cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        for gi in range(n // cfg.attn_every):
+            x = _mamba_decode_into(
+                cfg, layer(params["groups"], gi), x,
+                layer(cache["groups"], gi), cfg.attn_every)
+            x, _ = transformer.attn_block_decode(
+                cfg, shared, x, {"k": cache["shared_k"][gi],
+                                 "v": cache["shared_v"][gi]}, pos)
+        if "tail" in params:
+            x = _mamba_decode_into(cfg, params["tail"], x, cache["tail"],
+                                   n % cfg.attn_every)
+    else:
+        raise ValueError(cfg.family)
     x = layers.apply_norm(cfg.norm, x, params.get("final_norm"))
-    return _f32_logits(x[:, 0], _out_table(cfg, params)), cache
+    return _f32_logits(x[:, 0], _out_table(cfg, params)), new_cache

@@ -10,6 +10,8 @@ Integer-valued inputs make every dot product exact whatever the
 summation order, so those cases must be EQUAL; float inputs agree to a
 stated tolerance, and ids may differ only where distances tie within it.
 """
+import contextlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -908,6 +910,109 @@ def test_lm_forward_and_decode_on_the_card_equal_the_cpu(dev, arch):
                                                toks[:, t:t + 1].to(dev), t)
         torch.testing.assert_close(l_card.cpu(), l_cpu, rtol=0,
                                    atol=logit_atol)
+
+
+# The ssm (rwkv6), hybrid (zamba2) and audio (whisper) families at their
+# registered widths and a reduced depth (rwkv6 2 of 32 layers; zamba2 7
+# of 38, one group of 6 and a tail of 1; whisper all 6 + 6), on the card
+# against the port's CPU path on the same weights: prefill's logits and
+# four decode steps', each within FAMILY_LOGIT_ATOL. Beside
+# them a control, printed (-s): the card's run again with TF32 matmuls
+# allowed, a card path of lower precision in the f32 einsums. On an
+# NVIDIA H100 (700 W) the sound runs read 0.0416 / 0.0508 / 0.0125 and
+# the control 0.0447 / 0.0536 / 0.0131: FAMILY_LOGIT_ATOL lies between
+# zamba2's two, but bf16 rounding sets the logits' gap, so the logits see
+# the f32 einsums barely. The recurrence alone sees them:
+# test_chunked_linear_attention_on_the_card_equals_the_cpu holds it to
+# LINEAR_ATTN_REL of its largest value (sound 1.2e-6 / 2.0e-6, the TF32
+# control 5.1e-4 / 5.6e-4).
+FAMILY_DEPTH = {"rwkv6-3b": {"num_layers": 2},
+                "zamba2-1.2b": {"num_layers": 7}, "whisper-base": {}}
+FAMILY_LOGIT_ATOL = 0.052
+LINEAR_ATTN_REL = 1e-4
+
+
+@contextlib.contextmanager
+def _tf32():
+    """TF32 matmuls allowed inside (the control), off again after."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _family_logits(cfg, params, batch, device):
+    """prefill's last logits on ``batch``, then four decode steps' logits
+    from an empty cache, on ``device``; and the cache's dtypes."""
+    from repro_torch.models import model_zoo
+    on = {k: v.to(device) for k, v in batch.items()}
+    out = [model_zoo.prefill(cfg, params, on).float().cpu()]
+    cache = model_zoo.make_cache(cfg, 1, 8, device=device)
+    for t in range(4):
+        logits, cache = model_zoo.decode_step(cfg, params, cache,
+                                              on["tokens"][:, t:t + 1], t)
+        out.append(logits.float().cpu())
+    return torch.stack(out), {p: a.dtype for p, a in model_zoo.leaves(cache)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strict", [True, False])
+def test_chunked_linear_attention_on_the_card_equals_the_cpu(dev, strict):
+    """The recurrence's f32 einsums alone (B 2 x T 256, 8 heads of 64),
+    the card against the CPU within LINEAR_ATTN_REL of the output's
+    largest value; a TF32 control printed beside it (-s)."""
+    from repro_torch.models import linear_attn
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 256, 8, 64), generator=gen)
+               for _ in range(3))
+    log_w = -torch.exp(torch.randn((2, 256, 8, 64), generator=gen) * 0.5
+                       - 0.5)
+    kw = {"u": torch.full((8, 64), 0.5)} if strict else {}
+
+    def run(device):
+        y, s = linear_attn.chunked_linear_attention(
+            *(a.to(device) for a in (q, k, v, log_w)),
+            **{n: a.to(device) for n, a in kw.items()})
+        return torch.cat([y.flatten(), s.flatten()]).cpu()
+
+    want, got = run("cpu"), run(dev)
+    with _tf32():
+        control = run(dev)
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    control_err = float((control - want).abs().max()) / scale
+    print(f"chunked linear attention (strict {strict}): card vs CPU "
+          f"{err:.3e} relative, TF32 control {control_err:.3e}, limit "
+          f"{LINEAR_ATTN_REL}")
+    assert err <= LINEAR_ATTN_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(FAMILY_DEPTH))
+def test_lm_families_on_the_card_equal_the_cpu(dev, arch):
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+    cfg = configs.get_config(arch).scaled(**FAMILY_DEPTH[arch])
+    cpu = model_zoo.init_params(cfg, seed=0, device="cpu")
+    card = _tree_to(cpu, dev)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (1, 16)),
+                                       dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(rng.normal(size=(
+            1, cfg.frontend_len, cfg.frontend_dim))).to(torch.bfloat16)
+    want, want_dtypes = _family_logits(cfg, cpu, batch, "cpu")
+    got, got_dtypes = _family_logits(cfg, card, batch, dev)
+    with _tf32():
+        control, _ = _family_logits(cfg, card, batch, dev)
+    err = float((got - want).abs().max())
+    control_err = float((control - want).abs().max())
+    print(f"{arch} at {cfg.num_layers} layers: card vs CPU {err:.6f}, "
+          f"TF32 control {control_err:.6f}, limit {FAMILY_LOGIT_ATOL}")
+    assert got_dtypes == want_dtypes
+    assert err <= FAMILY_LOGIT_ATOL
 
 
 @pytest.mark.gpu

@@ -15,8 +15,15 @@ reference's ``init_params`` tree carried across with
   f32 (a block's residual sum feeds its norm unrounded), so the port's
   hidden states (|h| <= ~4) differ by up to two bf16 ulps there, 2^-5
   (atol 2^-4 below), and the logits by up to 0.0043 (atol 0.01).
+- The RWKV-6 (``ssm``), zamba2 (``hybrid``) and whisper (``audio``)
+  families, at the same tolerances: their blocks (tests/test_torch_linear_
+  attn.py for the mixers) are equal or a bf16 ulp or two apart eagerly;
+  end to end the hidden states differ by up to 2^-5, the logits by up to
+  0.0042, and the f32 decode states by up to 0.0082 of their largest
+  term (STATE_REL below).
 """
 import dataclasses
+import functools
 
 import pytest
 
@@ -75,13 +82,15 @@ def carried(arch: str, seed: int = 0):
 
 
 def batches(cfg, b, s, seed=0):
-    """The same seeded batch for both packages (tokens; a VLM's patches)."""
+    """The same seeded batch for both packages (tokens; a VLM's patches,
+    whisper's stub frames)."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
     ref, port = {"tokens": jnp.asarray(toks)}, {"tokens": torch.as_tensor(
         toks)}
-    if cfg.family == "vlm":
-        ref["patches"], port["patches"] = both(rng.normal(
+    if cfg.family in ("vlm", "audio"):
+        key = "patches" if cfg.family == "vlm" else "frames"
+        ref[key], port[key] = both(rng.normal(
             size=(b, cfg.frontend_len, cfg.frontend_dim)), "bfloat16")
     return ref, port
 
@@ -363,18 +372,10 @@ def test_make_cache_shapes_and_dtypes(arch):
 
 @pytest.mark.parametrize("arch", ref_configs.ALL_ARCHS)
 def test_param_shapes_and_dtype_equal_reference(arch):
-    """Every ported family's full-size tree has the reference's shapes
-    (nothing is allocated); the others raise, naming the ROADMAP item."""
+    """Every family's full-size tree has the reference's shapes (nothing
+    is allocated): the stacked blocks, zamba2's [G, g] groups, tail and
+    shared block, whisper's encoder."""
     ref, port = ref_configs.get_config(arch), configs.get_config(arch)
-    if port.family not in model_zoo.PORTED_FAMILIES:
-        for fn in (lambda: model_zoo.param_shapes(port),
-                   lambda: model_zoo.make_cache(port, 1, 4, device="cpu"),
-                   lambda: model_zoo.forward(port, {}, {}),
-                   lambda: model_zoo.decode_step(port, {}, {}, None, 0),
-                   lambda: model_zoo.init_params(port, device="cpu")):
-            with pytest.raises(NotImplementedError, match="4.2"):
-                fn()
-        return
     want = ref_zoo.param_shapes(ref)
     flat_want = {tuple(k.key for k in path): s for path, s in
                  jax.tree_util.tree_flatten_with_path(
@@ -453,3 +454,398 @@ def test_prefill_and_decode_agree_within_the_reference_bound():
     np.testing.assert_allclose(logits.numpy(), full.numpy(), atol=0.15,
                                rtol=0.05)
     assert torch.equal(logits.argmax(-1), full.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# the ssm (rwkv6), hybrid (zamba2) and audio (whisper) families
+# ---------------------------------------------------------------------------
+
+# small_config's widths; zamba2's 5 layers at attn_every 2 make two groups
+# and a tail of one, and its 4-layer variant has no tail.
+FAMILIES = {"rwkv6-3b": {}, "zamba2-1.2b": {},
+            "zamba2-1.2b/no-tail": {"num_layers": 4}, "whisper-base": {}}
+FAMILY_ARCHS = ("rwkv6-3b", "zamba2-1.2b", "whisper-base")
+# The f32 decode states against the reference's compiled decode_step,
+# relative to their largest term: XLA keeps bf16 values in f32 where they
+# feed an f32 state (the in_proj column entering the Mamba2 conv state,
+# the normed input in the RWKV's first-step mixes), so the states differ
+# by a few bf16 ulps (measured <= 0.0082 after five steps). Eagerly, a
+# block's states agree to f32 rounding (measured <= 1.2e-7; 1e-6 below).
+STATE_REL = 2.0 ** -6
+
+
+@functools.lru_cache(maxsize=None)
+def family(name: str):
+    """carried() for a FAMILIES entry, made once per test process (the
+    reference's init takes seconds); nothing here writes to the trees."""
+    rcfg = small_config(ref_configs.get_config(name.split("/")[0]))
+    if FAMILIES[name]:
+        rcfg = rcfg.scaled(**FAMILIES[name])
+    cfg = port_config(rcfg)
+    rp = ref_zoo.init_params(rcfg, jax.random.PRNGKey(0))
+    return rcfg, cfg, rp, convert.lm_params(jax.tree.map(np.asarray, rp),
+                                            cfg, "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def ref_decode(rcfg):
+    """The reference's decode_step under jit (compiled once per cache
+    tree: the RWKV cache's shifts change dtype after the first step)."""
+    return jax.jit(functools.partial(ref_zoo.decode_step, rcfg))
+
+
+def tree_close(port, ref, what="", rel=STATE_REL):
+    """Two decode caches: the same tree, shapes and dtypes; bf16 leaves
+    within HIDDEN_ATOL, f32 states within ``rel`` of their largest
+    term."""
+    if isinstance(ref, dict):
+        assert set(port) == set(ref), what
+        for k in ref:
+            tree_close(port[k], ref[k], f"{what}/{k}", rel)
+        return
+    assert tuple(port.shape) == tuple(ref.shape), what
+    assert str(port.dtype).split(".")[-1] == np.dtype(ref.dtype).name, what
+    if port.dtype == torch.bfloat16:
+        close(port, ref, rtol=0, atol=HIDDEN_ATOL, what=what)
+    else:
+        scale = float(np.abs(as_np(ref)).max()) or 1.0
+        close(port, ref, rtol=0, atol=rel * scale, what=what)
+
+
+def cross_cache(cfg, params, enc):
+    """whisper's cross cache filled from the encoder output, layer by
+    layer: (enc @ bf16(cross.w{k,v}[l])).reshape(B, T, Hkv, Dh), in
+    whichever package ``enc`` and ``params`` come from."""
+    dims = transformer.attn_dims(cfg)
+    cross = params["blocks"]["cross"]
+    out = []
+    for name in ("wk", "wv"):
+        w = cross[name]
+        if isinstance(enc, torch.Tensor):
+            out.append(torch.stack([
+                (enc @ w[l].to(torch.bfloat16)).reshape(
+                    enc.shape[0], enc.shape[1], dims.num_kv_heads,
+                    dims.head_dim) for l in range(cfg.num_layers)]))
+        else:
+            out.append(jnp.stack([
+                (enc @ w[l].astype(jnp.bfloat16)).reshape(
+                    enc.shape[0], enc.shape[1], dims.num_kv_heads,
+                    dims.head_dim) for l in range(cfg.num_layers)]))
+    return out
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_blocks_equal_reference(arch):
+    """Each family's blocks eagerly on both sides, on the same cast
+    parameters and input: rwkv_block and rwkv_block_decode (from f32 and
+    from bf16 shifts), mamba_block and mamba_block_decode, whisper's
+    attn_block(enc=) and attn_block_decode(enc_kv=); at most two bf16
+    ulps apart (measured; rtol 4 ulps)."""
+    rcfg, cfg, rp, pp = family(arch)
+    rng = np.random.default_rng(11)
+    xj, xt = both(rng.normal(size=(2, 16, 64)), "bfloat16")
+    one_j, one_t = xj[:, :1], xt[:, :1]
+    tol = dict(rtol=4 * BF16_ULP, atol=1e-6)
+    if cfg.family == "ssm":
+        rd = transformer.rwkv_dims(cfg)
+        for l in range(cfg.num_layers):
+            pj = jax.tree.map(lambda a: a[l], rp["blocks"])
+            pt = transformer.layer(pp["blocks"], l)
+            close(transformer.rwkv_block(cfg, pt, xt, chunk=8),
+                  ref_transformer.rwkv_block(rcfg, pj, xj, chunk=8),
+                  what=f"rwkv_block {l}", **tol)
+            for shift in ("float32", "bfloat16"):
+                sa = both(rng.normal(size=(2, 64)), shift)
+                sf = both(rng.normal(size=(2, 64)), shift)
+                wkv = both(rng.normal(size=(2, rd.num_heads, rd.head_dim,
+                                            rd.head_dim)) * 0.2, "float32")
+                hj, cj = ref_transformer.rwkv_block_decode(
+                    rcfg, pj, one_j, {"att_shift": sa[0], "ffn_shift": sf[0],
+                                      "wkv": wkv[0]})
+                ht, ct = transformer.rwkv_block_decode(
+                    cfg, pt, one_t, {"att_shift": sa[1], "ffn_shift": sf[1],
+                                     "wkv": wkv[1]})
+                close(ht, hj, what=f"rwkv_block_decode {l} {shift}", **tol)
+                assert ct["att_shift"].dtype == torch.bfloat16
+                tree_close(ct, cj, f"rwkv state {l} {shift}", 1e-6)
+    elif cfg.family == "hybrid":
+        md = transformer.mamba_dims(cfg)
+        pj = jax.tree.map(lambda a: a[1][0], rp["groups"])
+        pt = transformer.layer(transformer.layer(pp["groups"], 1), 0)
+        close(transformer.mamba_block(cfg, pt, xt, chunk=8),
+              ref_transformer.mamba_block(rcfg, pj, xj, chunk=8),
+              what="mamba_block", **tol)
+        ssm = both(rng.normal(size=(2, md.num_heads, md.d_state,
+                                    md.head_dim)) * 0.2, "float32")
+        conv = both(rng.normal(size=(2, md.conv_width - 1,
+                                     md.d_inner + 2 * md.d_state)) * 0.2,
+                    "float32")
+        hj, cj = ref_transformer.mamba_block_decode(
+            rcfg, pj, one_j, {"ssm": ssm[0], "conv": conv[0]})
+        ht, ct = transformer.mamba_block_decode(
+            cfg, pt, one_t, {"ssm": ssm[1], "conv": conv[1]})
+        close(ht, hj, what="mamba_block_decode", **tol)
+        tree_close(ct, cj, "mamba state", 1e-6)
+    else:
+        dims = transformer.attn_dims(cfg)
+        ej, et = both(rng.normal(size=(2, 8, 64)), "bfloat16")
+        kv = [both(rng.normal(size=(2, 8, dims.num_kv_heads,
+                                    dims.head_dim)), "bfloat16")
+              for _ in range(4)]
+        for l in range(cfg.num_layers):
+            pj = jax.tree.map(lambda a: a[l], rp["blocks"])
+            pt = transformer.layer(pp["blocks"], l)
+            hj, _ = ref_transformer.attn_block(rcfg, pj, xj, enc=ej, chunk=4)
+            ht, _ = transformer.attn_block(cfg, pt, xt, enc=et, chunk=4)
+            close(ht, hj, what=f"attn_block(enc=) {l}", **tol)
+            hj, _ = ref_transformer.attn_block_decode(
+                rcfg, pj, one_j, {"k": kv[0][0], "v": kv[1][0]},
+                jnp.asarray(3, jnp.int32), enc_kv=(kv[2][0], kv[3][0]))
+            ht, _ = transformer.attn_block_decode(
+                cfg, pt, one_t, {"k": kv[0][1].clone(), "v": kv[1][1].clone()},
+                3, enc_kv=(kv[2][1], kv[3][1]))
+            close(ht, hj, what=f"attn_block_decode(enc_kv=) {l}", **tol)
+
+
+def test_encode_audio_and_cross_attention_equal_reference():
+    """cross_attention over a ragged encoder length (10 frames, KV chunk
+    4: the last chunk padded and masked), and whisper's encoder (the
+    frames' projection, sinusoidal positions, non-causal blocks, the
+    final norm) on the small config's 8 frames."""
+    rng = np.random.default_rng(12)
+    dims = layers.AttnDims(4, 2, 16)
+    shapes = layers.attn_params_shape(64, dims)
+    pj, pt = {}, {}
+    for name, shape in shapes.items():
+        pj[name], pt[name] = both(rng.normal(size=shape) * 0.2, "bfloat16")
+    xj, xt = both(rng.normal(size=(2, 5, 64)), "bfloat16")
+    ej, et = both(rng.normal(size=(2, 10, 64)), "bfloat16")
+    got = layers.cross_attention(pt, xt, et, dims, chunk=4)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 5, 64)
+    close(got, ref_layers.cross_attention(
+        pj, xj, ej, ref_layers.AttnDims(4, 2, 16), chunk=4),
+        what="cross_attention")
+    np.testing.assert_array_equal(model_zoo._sinusoidal(7, 64),
+                                  ref_zoo._sinusoidal(7, 64))
+    rcfg, cfg, rp, pp = family("whisper-base")
+    rb, pb = batches(cfg, 2, 4)
+    got = model_zoo.encode_audio(cfg, pp, pb["frames"])
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == (2, cfg.frontend_len, cfg.d_model)
+    close(got, ref_zoo.encode_audio(rcfg, rp, rb["frames"]), rtol=0,
+          atol=HIDDEN_ATOL, what="encode_audio")
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_family_forward_and_prefill_equal_reference(name):
+    """rwkv6 (the chunked recurrence over 16 tokens), zamba2 with and
+    without a tail, whisper (the encoder on stub frames, cross-attention
+    in every decoder block)."""
+    rcfg, cfg, rp, pp = family(name)
+    rb, pb = batches(cfg, 2, 16)
+    xj, wj, mj = ref_zoo.forward(rcfg, rp, rb, remat=False, chunk=8)
+    xt, wt, mt = model_zoo.forward(cfg, pp, pb, chunk=8)
+    assert xt.dtype == torch.bfloat16 and xt.shape == tuple(xj.shape)
+    close(xt, xj, rtol=0, atol=HIDDEN_ATOL, what="hidden")
+    assert wt is None and wj is None and mt == {} and mj == {}
+    got = model_zoo.prefill(cfg, pp, pb, chunk=8)
+    assert got.dtype == torch.float32 and got.shape == (2, cfg.vocab_size)
+    close(got, ref_zoo.prefill(rcfg, rp, rb, chunk=8), rtol=0,
+          atol=LOGIT_ATOL, what="prefill logits")
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_family_decode_steps_equal_reference(name):
+    """make_cache's tree, shapes and dtypes; then five decode_steps from
+    it: logits each step, and after the first step and the last the
+    cache against the reference's. After one step the RWKV shifts are
+    bf16, as the reference's are (its f32 zeros promoted the first step's
+    mixes to f32; a bf16 state keeps the next in bf16)."""
+    rcfg, cfg, rp, pp = family(name)
+    b, steps, s_max = 2, 5, 8
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (b, steps)
+                                              ).astype(np.int32)
+    cj = ref_zoo.make_cache(rcfg, b, s_max)
+    ct = model_zoo.make_cache(cfg, b, s_max, device="cpu")
+    tree_close(ct, cj, "empty cache")
+    assert not any(a.any() for _, a in model_zoo.leaves(ct))
+    step = ref_decode(rcfg)
+    for t in range(steps):
+        lj, cj = step(rp, cj, jnp.asarray(toks[:, t:t + 1]),
+                      jnp.asarray(t, jnp.int32))
+        lt, ct = model_zoo.decode_step(cfg, pp, ct,
+                                       torch.as_tensor(toks[:, t:t + 1]), t)
+        close(lt, lj, rtol=0, atol=LOGIT_ATOL, what=f"logits at {t}")
+        if t in (0, steps - 1):
+            tree_close(ct, cj, f"cache after step {t}")
+    if cfg.family == "ssm":
+        assert {k: v.dtype for k, v in ct.items()} == {
+            "att_shift": torch.bfloat16, "ffn_shift": torch.bfloat16,
+            "wkv": torch.float32}
+
+
+def test_whisper_decode_on_a_filled_cross_cache():
+    """The cross cache filled from each package's own encoder output:
+    decode_steps against the reference's on its filled cache, and the
+    port's decode at position 0 against a 1-token prefill on the same
+    frames (where the decode's position-0 encoding is the prefill's)."""
+    rcfg, cfg, rp, pp = family("whisper-base")
+    rb, pb = batches(cfg, 2, 4, seed=5)
+    ckj, cvj = cross_cache(cfg, rp, ref_zoo.encode_audio(
+        rcfg, rp, rb["frames"]))
+    ckt, cvt = cross_cache(cfg, pp, model_zoo.encode_audio(
+        cfg, pp, pb["frames"]))
+    close(ckt, ckj, rtol=0, atol=HIDDEN_ATOL, what="ck")
+    cj = dict(ref_zoo.make_cache(rcfg, 2, 6), ck=ckj, cv=cvj)
+    ct = dict(model_zoo.make_cache(cfg, 2, 6, device="cpu"), ck=ckt, cv=cvt)
+    step = ref_decode(rcfg)
+    toks = np.asarray(rb["tokens"])
+    for t in range(4):
+        lj, cj = step(rp, cj, jnp.asarray(toks[:, t:t + 1]),
+                      jnp.asarray(t, jnp.int32))
+        lt, ct = model_zoo.decode_step(cfg, pp, ct,
+                                       torch.as_tensor(toks[:, t:t + 1]), t)
+        close(lt, lj, rtol=0, atol=LOGIT_ATOL, what=f"logits at {t}")
+        if t == 0:
+            one = model_zoo.prefill(cfg, pp, {"tokens": pb["tokens"][:, :1],
+                                              "frames": pb["frames"]})
+            close(lt, one, rtol=0, atol=LOGIT_ATOL, what="vs prefill")
+            assert torch.equal(lt.argmax(-1), one.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b"])
+def test_family_prefill_and_decode_agree_within_the_reference_bound(arch):
+    """The reference's consistency check on the port alone, for the
+    recurrent families: decode logits at position s-1 against the
+    prefill's, atol 0.15, rtol 0.05, top-1 equal."""
+    cfg = port_config(small_config(ref_configs.get_config(arch)))
+    params = model_zoo.init_params(cfg, seed=1, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 12)), dtype=torch.int32)
+    full = model_zoo.prefill(cfg, params, {"tokens": toks})
+    cache = model_zoo.make_cache(cfg, 2, 16, device="cpu")
+    for t in range(12):
+        logits, cache = model_zoo.decode_step(cfg, params, cache,
+                                              toks[:, t:t + 1], t)
+    np.testing.assert_allclose(logits.numpy(), full.numpy(), atol=0.15,
+                               rtol=0.05)
+    assert torch.equal(logits.argmax(-1), full.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_init_params_families_law_and_constants(arch):
+    """The port's own init for the new trees: the reference's leaves and
+    dtypes, its constants (a_log 0, dt_bias -2, d_skip 1, w0 0, bonus_u
+    0.5, mu_* 0.5, every scale 1), normal * 0.02 elsewhere."""
+    rcfg, cfg, rp, _ = family(arch)
+    ref = dict(model_zoo.leaves(jax.tree.map(np.asarray, rp)))
+    got = dict(model_zoo.leaves(model_zoo.init_params(cfg, seed=3,
+                                                      device="cpu")))
+    assert set(got) == set(ref)
+    for path, a in got.items():
+        want = ref[path]
+        assert tuple(a.shape) == want.shape and a.dtype == torch.float32
+        name = path[-1]
+        if name in model_zoo._SPECIAL_INIT or name.startswith("mu_"):
+            np.testing.assert_array_equal(a.numpy(), want, err_msg=str(path))
+        elif a.numel() >= 256:
+            assert abs(float(a.std()) - 0.02) < 0.004, path
+
+
+def test_lm_params_over_groups_tail_and_encoder():
+    """lm_params walks zamba2's [G, g] groups, its tail and shared block,
+    and whisper's encoder: each carried leaf equal to the reference's; a
+    tree without the tail its config needs, or with one it does not,
+    raises."""
+    for name in ("zamba2-1.2b", "whisper-base"):
+        _, cfg, rp, pp = family(name)
+        for path, a in model_zoo.leaves(jax.tree.map(np.asarray, rp)):
+            node = pp
+            for k in path:
+                node = node[k]
+            np.testing.assert_array_equal(node.numpy(), a)
+    _, cfg, rp, _ = family("zamba2-1.2b")
+    tree = jax.tree.map(np.asarray, rp)
+    assert tree["groups"]["mamba"]["in_proj"].ndim == 4      # [G, g, ...]
+    no_tail = {k: v for k, v in tree.items() if k != "tail"}
+    with pytest.raises(KeyError, match="tail"):
+        convert.lm_params(no_tail, cfg, "cpu")
+    _, cfg4, _, _ = family("zamba2-1.2b/no-tail")
+    assert "tail" not in model_zoo.param_shapes(cfg4)
+    with pytest.raises(KeyError, match="tail"):
+        convert.lm_params(tree, cfg4, "cpu")
+    _, wcfg, wp, _ = family("whisper-base")
+    wtree = jax.tree.map(np.asarray, wp)
+    enc = dict(wtree["encoder"])
+    del enc["in_proj"]
+    with pytest.raises(KeyError, match="in_proj"):
+        convert.lm_params(dict(wtree, encoder=enc), wcfg, "cpu")
+
+
+def _decode_prefill_gaps(rcfg, b, s=64):
+    """At ``rcfg``'s depth, each package's own decode against its own
+    prefill at position s-1, on the same weights and tokens: (the
+    reference's largest error, the port's, the reference's rows with
+    top-1 equal, the port's)."""
+    cfg = port_config(rcfg)
+    rp = ref_zoo.init_params(rcfg, jax.random.PRNGKey(0))
+    pp = convert.lm_params(jax.tree.map(np.asarray, rp), cfg, "cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s)
+                                              ).astype(np.int32)
+    full_r = as_np(ref_zoo.prefill(rcfg, rp, {"tokens": jnp.asarray(toks)}))
+    full_p = as_np(model_zoo.prefill(cfg, pp,
+                                     {"tokens": torch.as_tensor(toks)}))
+    step, cj = ref_decode(rcfg), ref_zoo.make_cache(rcfg, b, s)
+    ct = model_zoo.make_cache(cfg, b, s, device="cpu")
+    for t in range(s):
+        lj, cj = step(rp, cj, jnp.asarray(toks[:, t:t + 1]),
+                      jnp.asarray(t, jnp.int32))
+        lt, ct = model_zoo.decode_step(cfg, pp, ct,
+                                       torch.as_tensor(toks[:, t:t + 1]), t)
+    lj, lt = as_np(lj), as_np(lt)
+    gaps = (float(np.abs(lj - full_r).max()), float(np.abs(lt - full_p).max()),
+            int((lj.argmax(-1) == full_r.argmax(-1)).sum()),
+            int((lt.argmax(-1) == full_p.argmax(-1)).sum()))
+    print(f"{rcfg.name} at {rcfg.num_layers} layers, d_model "
+          f"{rcfg.d_model}, B {b}: decode vs prefill, reference "
+          f"{gaps[0]:.4f} (top-1 {gaps[2]} / {b}), port {gaps[1]:.4f} "
+          f"(top-1 {gaps[3]} / {b})")
+    return gaps
+
+
+# The port's decode-vs-prefill gap at full depth against the reference's
+# own: within DEPTH_GAP_RATIO of it. Measured (d_model 256): rwkv6 at 32
+# layers 0.132 against the reference's 0.180, zamba2 at 38 layers 0.0745
+# against 0.0757.
+DEPTH_GAP_RATIO = 1.25
+
+
+def test_rwkv_decode_prefill_gap_at_depth_is_the_references():
+    """rwkv6 at its 32 layers (d_model 256): the port's decode lies no
+    further from its prefill than DEPTH_GAP_RATIO times the reference's
+    own gap. At this depth the reference's own decode misses the
+    reference's bound of its prefill (atol 0.15, rtol 0.05: measured
+    0.180), which is why chip_smoke.py's phase 13 gates the recurrent
+    families' decode below full depth and prints it at full depth."""
+    rcfg = ref_configs.get_config("rwkv6-3b").scaled(
+        d_model=256, num_heads=4, num_kv_heads=4, d_ff=896, vocab_size=4096,
+        num_layers=32)
+    ref_gap, port_gap, _, _ = _decode_prefill_gaps(rcfg, 2)
+    assert port_gap <= DEPTH_GAP_RATIO * ref_gap
+
+
+def test_zamba_decode_prefill_gap_at_depth_is_the_references():
+    """zamba2 at its 38 Mamba2 blocks (6 groups of 6 around the shared
+    attention block, a tail of 2; d_model 256, d_inner 512, 8 Mamba heads,
+    d_state 64) on 8 rows: the port's decode lies no further from its
+    prefill than DEPTH_GAP_RATIO times the reference's own gap. The
+    decode runs its convolution and what follows up to ``out_proj`` in
+    f32 where the prefill runs bf16, in both packages; at this depth the
+    reference's own decode is within the numeric bound (measured 0.0757)
+    but its top-1 token differs from its prefill's in 2 of the 8 rows,
+    so the reference's check (top-1 equal) fails there too."""
+    rcfg = ref_configs.get_config("zamba2-1.2b").scaled(
+        d_model=256, num_heads=4, num_kv_heads=4, d_ff=1024, vocab_size=4096)
+    assert (rcfg.num_layers, rcfg.attn_every, rcfg.ssm_state) == (38, 6, 64)
+    ref_gap, port_gap, _, _ = _decode_prefill_gaps(rcfg, 8)
+    assert port_gap <= DEPTH_GAP_RATIO * ref_gap
