@@ -42,7 +42,8 @@ Phases, each fatal on failure:
               ``HNSW_N`` rows (750,000) of the same collection:
               ``hnsw.build`` (the reference's defaults: m 16,
               ef_construction 64, two passes, alpha 1.2) -> ``Darth.fit``
-              -> ``search_plain`` -> ``Darth.search`` at 0.80 / 0.90 / 0.95,
+              (on the first 4,000 learn queries: a CUT line) ->
+              ``search_plain`` -> ``Darth.search`` at 0.80 / 0.90 / 0.95,
               with ``hnsw_engine(k=10, ef=384, max_steps=1200)`` (the
               reference's benchmark setting). The counts are zeroed just
               before the build and read just after the last search;
@@ -240,6 +241,27 @@ Phases, each fatal on failure:
               (B 1, 1500 frames, S 32) as for the recurrent models. The
               kernels' counts are zeroed before the phase and read after
               (no kernel of the repo runs on these paths).
+14. lm train: LM training (``repro_torch.launch.train``, ``train``,
+              ``optim``, ``ckpt``; no kernel of the repo runs on it), the
+              counts zeroed before and read after. (a) ``launch.train.
+              main`` with smollm-360m at its registered width and depth
+              (32 layers, d_model 960, vocab 49152), AdamW, remat on,
+              global batch 8 x 2048 of the token stream, 4 steps (2 past
+              1050 s of the script: a CUT line) and one checkpoint at the
+              end: each step's wall, loss and grad norm (all finite), the
+              steady tokens/s, peak bytes, the checkpoint's seconds and
+              bytes, and the checkpoint restored equal to the saved trees
+              bit for bit. (b) at the same width and 2 layers, B 2 x S
+              128: every gradient leaf on the card against the port's CPU
+              path (relative to the leaf's largest value), as shipped
+              (bf16) and with the model computing in f32, and
+              ``flash_attention``'s backward alone, each within its
+              limit beside a TF32 control; half the batch and the f32
+              run's TF32 control must fail their gates. (c) the
+              example's config (4 layers, d_model 256, vocab 4096, B 8 x
+              S 128): 8 steps straight against a failure at step 6 and a
+              resume from step 4's checkpoint; the losses and the final
+              parameters and optimizer state equal bit for bit.
 
 Bounds. A kernel's ``bound_ms`` is the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -262,7 +284,7 @@ It imports nothing of JAX or of the ``repro`` package. Output: JSON lines
 of each path's results and of per-kernel results (``launches`` summed
 over the paths, ``launches_by_path`` split: ivf, hnsw, serve, mutate,
 competitors, cold, cold_shard, sharded, quickstart, audit, rag,
-lm_families), each
+lm_families, train), each
 phase's wall time, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Full
 results also go to ``results/chip_smoke.json``. Without a CUDA card, or
@@ -271,6 +293,7 @@ without the repository around it, it exits non-zero and prints no result.
 import argparse
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -294,6 +317,17 @@ TOL = 0.03
 # PERF.md section 4), so 1M fails the 0.95 target's gate of 0.92 and
 # 750,000 is the largest of these that meets it.
 HNSW_N = 750_000
+# The HNSW Darth.fit runs on the first HNSW_FIT_LEARN of the 10,000 learn
+# queries (a CUT line): all of them took 133.9 s on an NVIDIA H100
+# (PERF.md section 5); the time pays for phase 14. On this cell no query
+# has been due for a prediction (npred 0: the routing scan's R = 8192
+# comes first), and while npred stays 0 the searches return the plain
+# search's results, whatever the fit's size.
+HNSW_FIT_LEARN = 4_000
+HNSW_FIT_CUT = (
+    f"the HNSW Darth.fit uses the first {HNSW_FIT_LEARN:,} of the 10,000 "
+    f"learn queries (all 10,000 took 133.9 s; the time pays for phase 14, "
+    f"LM training)")
 # The launcher's serving settings (src/repro/launch/serve.py:80 and the
 # server's defaults): slots in the pool, engine steps between syncs.
 SERVE_SLOTS, SERVE_SPS = 64, 4
@@ -396,6 +430,38 @@ FAM_VS_CPU_BOUND = {"atol": 0.052, "rtol": 0.0}
 FAM_LA_REL = 1e-4
 AUDIO_BATCH, AUDIO_TOKENS, AUDIO_DECODE = 8, 448, 32
 AUDIO_VS_CPU = (1, 32)
+# Phase 14, LM training through the launcher (repro_torch.launch.train)
+# at smollm-360m's registered width and depth: AdamW, remat on, global
+# batch TRAIN_BATCH x TRAIN_SEQ, TRAIN_STEPS steps and one checkpoint at
+# the end (TRAIN_STEPS_CUT steps past TRAIN_CUT_AT s of the script: a CUT
+# line). The card's gradients against the port's CPU path at the same
+# width and TRAIN_VS_CPU_LAYERS layers on TRAIN_VS_CPU (batch, sequence)
+# of the token stream: each leaf's largest error relative to its largest
+# value, within TRAIN_GRAD_REL as shipped and TRAIN_F32_GRAD_REL with the
+# model computing in f32, and flash_attention's backward alone at that
+# shape within TRAIN_FLASH_REL, each beside a TF32 control. The
+# restart: the example's config (4 layers, d_model 256, vocab 4096, B 8 x
+# S 128), TRAIN_RESTART_STEPS straight against a failure at step
+# TRAIN_FAIL_AT and a resume from the checkpoint of TRAIN_CKPT_EVERY:
+# losses and final parameters equal bit for bit.
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 4
+TRAIN_STEPS_CUT, TRAIN_CUT_AT = 2, 1050.0
+TRAIN_VS_CPU_LAYERS, TRAIN_VS_CPU = 2, (2, 128)
+# On an NVIDIA H100 (700 W), as shipped (bf16) the worst leaf (wq) reads
+# 0.0134 and its TF32 control 0.0110: bf16 rounding sets the gap, so
+# TRAIN_GRAD_REL (2.2x above the sound reading; the CPU's reference lies
+# 0.0129 from its jitted run at the small config, test_torch_grads.py)
+# sees no precision fault, only a wrong gradient: half the batch left out
+# reads 1.20. The same model computing in f32 reads 3.3e-6 sound and
+# 1.9e-3 with TF32: TRAIN_F32_GRAD_REL lies 15x above the one and 38x
+# below the other. flash_attention's backward alone: 5.4e-7 sound, at
+# least 2.9e-4 with TF32, and TRAIN_FLASH_REL lies 18x above the one and
+# 29x below the other.
+TRAIN_GRAD_REL = 0.03
+TRAIN_F32_GRAD_REL = 5e-5
+TRAIN_FLASH_REL = 1e-5
+TRAIN_RESTART_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 8, 6, 4
 SHARD_CUTS = (
     "the sharded HNSW checks use the first 256 of the 1,000 test queries "
     "(each runs the 750,000-row graph at ef 384 to natural termination, "
@@ -2711,9 +2777,9 @@ def quickstart_path(card):
     return out, launches, failures
 
 
-def _on_cpu(tree):
-    """A parameter tree's copy on the host."""
-    return {k: _on_cpu(v) if isinstance(v, dict) else v.cpu()
+def _tree_to(tree, device):
+    """A parameter tree's copy on ``device``."""
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
 
 
@@ -2856,16 +2922,17 @@ def _vs_cpu(cfg, params, batch, bound, tf32_control=False):
     bound."""
     import torch
     from repro_torch.models import model_zoo
-    on_card = model_zoo.forward(cfg, params, batch)[0]
+    on_card = model_zoo.forward(cfg, params, batch, remat=False)[0]
     logits_card = model_zoo.prefill(cfg, params, batch)
     control = None
     if tf32_control:
         with _tf32():
             control = model_zoo.prefill(cfg, params, batch)
     t0 = time.time()
-    cpu_params = _on_cpu(params)
+    cpu_params = _tree_to(params, "cpu")
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
-    on_cpu = model_zoo.forward(cfg, cpu_params, cpu_batch)[0]
+    on_cpu = model_zoo.forward(cfg, cpu_params, cpu_batch,
+                                remat=False)[0]
     logits_cpu = model_zoo.prefill(cfg, cpu_params, cpu_batch)
     out = dict(_consistency(logits_card, logits_cpu, bound, top1=False),
                layers=cfg.num_layers, batch=batch["tokens"].shape[0],
@@ -2889,6 +2956,20 @@ def _tf32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def _compute_f32():
+    """The LM computes in f32 inside (``model_zoo.COMPUTE``, which every
+    block follows), in bf16 again after: the same model without bf16's
+    rounding, so that card against CPU sees the f32 products' precision."""
+    import torch
+    from repro_torch.models import model_zoo
+    was, model_zoo.COMPUTE = model_zoo.COMPUTE, torch.float32
+    try:
+        yield
+    finally:
+        model_zoo.COMPUTE = was
 
 
 def _linear_attn_vs_cpu(cfg, seq):
@@ -3019,7 +3100,8 @@ def lm_moe(card, layers):
     toks = _seeded_tokens(cfg, (b, s), torch.Generator().manual_seed(1))
     last, out["prefill"] = _timed_prefill(cfg, params, {"tokens": toks},
                                           warm={"tokens": toks[:1, :64]})
-    _, _, metrics = model_zoo.forward(cfg, params, {"tokens": toks})
+    _, _, metrics = model_zoo.forward(cfg, params, {"tokens": toks},
+                                       remat=False)
     out["prefill"].update(moe_drop_frac=float(metrics["moe_drop_frac"]),
                           moe_aux_loss=float(metrics["moe_aux_loss"]))
     cache = model_zoo.make_cache(cfg, b, MOE_DECODE, device="cuda")
@@ -3042,13 +3124,15 @@ def lm_moe(card, layers):
     one = full.scaled(num_layers=1)
     p1 = dict(params, blocks=_sliced(params["blocks"], 1))
     small = toks[:vb, :vs]
-    on_card = model_zoo.forward(one, p1, {"tokens": small})[0]
+    on_card = model_zoo.forward(one, p1, {"tokens": small},
+                                remat=False)[0]
     logits_card = model_zoo.prefill(one, p1, {"tokens": small})
     t0 = time.time()
-    cpu_params = _on_cpu(p1)
+    cpu_params = _tree_to(p1, "cpu")
     del params, p1
     torch.cuda.empty_cache()
-    on_cpu = model_zoo.forward(one, cpu_params, {"tokens": small.cpu()})[0]
+    on_cpu = model_zoo.forward(one, cpu_params, {"tokens": small.cpu()},
+                               remat=False)[0]
     logits_cpu = model_zoo.prefill(one, cpu_params, {"tokens": small.cpu()})
     rows_off = int(((on_card.float().cpu() - on_cpu.float()).abs()
                     > LM_HIDDEN_ATOL).any(-1).sum())
@@ -3476,6 +3560,264 @@ def lm_families_phase(card):
     out["launches"] = launches
     out["wall_s"] = time.time() - t_start
     print(f"[lm-families] launches {launches}; phase 13 took "
+          f"{out['wall_s']:.1f}s", flush=True)
+    return out, launches, failures
+
+
+def _leaves_equal(a, b):
+    """Two trees of tensors hold the same leaves, dtypes and bits."""
+    import torch
+    from repro_torch.models import model_zoo
+    la, lb = dict(model_zoo.leaves(a)), dict(model_zoo.leaves(b))
+    return set(la) == set(lb) and all(
+        la[k].dtype == lb[k].dtype and torch.equal(la[k], lb[k]) for k in la)
+
+
+def _train_launcher(work, steps):
+    """14 (a): ``repro_torch.launch.train.main`` at smollm-360m's full
+    width and depth on the card, then the checkpoint it wrote restored
+    into its own trees and held to the saved bits."""
+    import torch
+    from repro_torch import ckpt
+    from repro_torch.launch import train as launch
+    ck_dir = os.path.join(work, "launch")
+    args = ["--arch", TRAIN_ARCH, "--scale", "1.0", "--global-batch",
+            str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--steps",
+            str(steps), "--ckpt-every", str(steps), "--ckpt-dir", ck_dir,
+            "--device", "cuda"]
+    t0 = time.time()
+    res = launch.main(args)
+    wall = time.time() - t0
+    cfg, rows = res["config"], res["steps"]
+    steady = [r["wall_s"] for r in rows[1:]]
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": _lm_sizes(res["params"])["params"],
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": "adamw",
+           "remat": True, "argv": args, "wall_s": wall,
+           "steps": [{k: r[k] for k in ("step", "loss", "grad_norm", "lr",
+                                        "wall_s")} for r in rows],
+           "first_step_s": rows[0]["wall_s"],
+           "steady_step_s": sum(steady) / len(steady) if steady else None,
+           "peak_bytes": res["peak_bytes"]}
+    if steady:
+        out["tokens_per_s_steady"] = TRAIN_BATCH * TRAIN_SEQ / \
+            out["steady_step_s"]
+    failures = [f"train: step {r['step']} {k} is not finite ({r[k]})"
+                for r in rows for k in ("loss", "grad_norm")
+                if not math.isfinite(r[k])]
+    if len(res["checkpoints"]) != 1 or len(rows) != steps:
+        failures.append(f"train: {len(rows)} steps and "
+                        f"{len(res['checkpoints'])} checkpoints, expected "
+                        f"{steps} and 1")
+        return out, failures
+    saved = res["checkpoints"][0]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    (params, state), meta = ckpt.restore(ck_dir, (res["params"],
+                                                  res["opt_state"]))
+    torch.cuda.synchronize()
+    out["checkpoint"] = {
+        "step": saved["step"], "save_s": saved["seconds"],
+        "bytes": saved["bytes"], "restore_s": time.time() - t0,
+        "next_step": meta["extra"]["next_step"],
+        "restored_bits_equal": _leaves_equal(params, res["params"])
+        and _leaves_equal(state, res["opt_state"])}
+    if not out["checkpoint"]["restored_bits_equal"]:
+        failures.append("train: the restored checkpoint differs from the "
+                        "saved trees")
+    del res, params, state
+    torch.cuda.empty_cache()
+    return out, failures
+
+
+def _rel_by_leaf(got, want):
+    """{leaf: largest |got - want| / largest |want|}, on the host."""
+    from repro_torch.models import model_zoo
+    g, w = dict(model_zoo.leaves(got)), dict(model_zoo.leaves(want))
+    return {"/".join(k): float((g[k].float().cpu() - w[k].float()).abs()
+                               .max()) / max(float(w[k].float().abs().max()),
+                                             1e-30) for k in w}
+
+
+def _train_vs_cpu():
+    """14 (b): the gradients of loss_fn on the card against the port's
+    CPU path, same weights (smollm-360m's width, TRAIN_VS_CPU_LAYERS
+    layers) and batch (the token stream's step 0), per leaf relative to
+    its largest value: as shipped (bf16), beside a TF32 control and a
+    control on half the batch that the gate must fail; the same model
+    computing in f32, beside a TF32 control that its gate must fail; then
+    flash_attention's backward alone at that batch's attention shape."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.synthetic import PipelineConfig, TokenPipeline
+    from repro_torch.models import layers, model_zoo
+    from repro_torch.train import step
+    b, s = TRAIN_VS_CPU
+    cfg = configs.get_config(TRAIN_ARCH).scaled(
+        num_layers=TRAIN_VS_CPU_LAYERS)
+    cpu = model_zoo.init_params(cfg, seed=0, device="cpu")
+    card = _tree_to(cpu, "cuda")
+    batch = TokenPipeline(PipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=s, global_batch=b), "cpu"
+    ).get_batch(0)
+    on = {k: v.cuda() for k, v in batch.items()}
+    loss_card, _, g_card = step.grads_of(cfg, card, on)
+    with _tf32():
+        loss_ctl, _, g_ctl = step.grads_of(cfg, card, on)
+    _, _, g_half = step.grads_of(cfg, card, {k: v[:b // 2]
+                                             for k, v in on.items()})
+    t0 = time.time()
+    loss_cpu, _, g_cpu = step.grads_of(cfg, cpu, batch)
+    cpu_s = time.time() - t0
+    sound, control = _rel_by_leaf(g_card, g_cpu), _rel_by_leaf(g_ctl, g_cpu)
+    half = max(_rel_by_leaf(g_half, g_cpu).values())
+    del g_card, g_ctl, g_cpu, g_half
+    with _compute_f32():
+        _, _, f_card = step.grads_of(cfg, card, on)
+        with _tf32():
+            _, _, f_ctl = step.grads_of(cfg, card, on)
+        _, _, f_cpu = step.grads_of(cfg, cpu, batch)
+    f_sound, f_control = _rel_by_leaf(f_card, f_cpu), _rel_by_leaf(f_ctl,
+                                                                   f_cpu)
+    del card, f_card, f_ctl, f_cpu
+    worst = max(sound, key=sound.get)
+    out = {"layers": cfg.num_layers, "batch": b, "seq": s, "cpu_s": cpu_s,
+           "loss": {"card": float(loss_card), "cpu": float(loss_cpu),
+                    "tf32_control": float(loss_ctl)},
+           "grad_rel_by_leaf": sound, "worst_leaf": worst,
+           "grad_rel": sound[worst],
+           "tf32_control_grad_rel": max(control.values()),
+           "tf32_control_by_leaf": control,
+           "half_batch_control_grad_rel": half, "limit": TRAIN_GRAD_REL,
+           "f32": {"grad_rel": max(f_sound.values()),
+                   "tf32_control_grad_rel": max(f_control.values()),
+                   "grad_rel_by_leaf": f_sound,
+                   "tf32_control_by_leaf": f_control,
+                   "limit": TRAIN_F32_GRAD_REL}}
+    h, dh = cfg.num_heads, cfg.resolved_head_dim
+    gen = torch.Generator().manual_seed(2)
+    q, k, v, dout = (torch.randn((b, s, h, dh), generator=gen)
+                     for _ in range(4))
+
+    def flash_grads(device):
+        ins = [a.to(device).requires_grad_(True) for a in (q, k, v)]
+        o = layers.flash_attention(*ins, True, 0, 512)
+        return [g.cpu() for g in torch.autograd.grad(o, ins,
+                                                     dout.to(device))]
+
+    want, got = flash_grads("cpu"), flash_grads("cuda")
+    with _tf32():
+        ctl = flash_grads("cuda")
+    rel = [float((a - c).abs().max()) / float(c.abs().max())
+           for a, c in zip(got, want)]
+    rel_ctl = [float((a - c).abs().max()) / float(c.abs().max())
+               for a, c in zip(ctl, want)]
+    out["flash_backward"] = {"shape": [b, s, h, dh], "rel_dq_dk_dv": rel,
+                             "tf32_control_rel": rel_ctl,
+                             "limit": TRAIN_FLASH_REL}
+    failures = []
+    if not sound[worst] <= TRAIN_GRAD_REL:
+        failures.append(f"train: gradient {worst} on the card lies "
+                        f"{sound[worst]:.4g} from the CPU's (limit "
+                        f"{TRAIN_GRAD_REL})")
+    if not half > TRAIN_GRAD_REL:
+        failures.append(f"train: the gradients of half the batch pass the "
+                        f"gate ({half:.4g}, limit {TRAIN_GRAD_REL})")
+    f_worst = out["f32"]["grad_rel"]
+    if not f_worst <= TRAIN_F32_GRAD_REL:
+        failures.append(f"train: the f32 model's gradients on the card lie "
+                        f"{f_worst:.4g} from the CPU's (limit "
+                        f"{TRAIN_F32_GRAD_REL})")
+    if not out["f32"]["tf32_control_grad_rel"] > TRAIN_F32_GRAD_REL:
+        failures.append("train: the f32 gradients' gate cannot see TF32 "
+                        f"({out['f32']['tf32_control_grad_rel']:.4g})")
+    if not max(rel) <= TRAIN_FLASH_REL:
+        failures.append(f"train: flash_attention's backward on the card "
+                        f"lies {max(rel):.3g} from the CPU's (limit "
+                        f"{TRAIN_FLASH_REL})")
+    return out, failures
+
+
+def _train_restart(work):
+    """14 (c): the example's config on the card, TRAIN_RESTART_STEPS
+    straight, against a SimulatedFailure at TRAIN_FAIL_AT and a resume
+    from the last checkpoint: equal losses and final trees, bit for
+    bit."""
+    from repro_torch.examples import train_lm
+    from repro_torch.train import SimulatedFailure, train
+    cfg, b, s = train_lm.example_config()
+    kw = dict(steps=TRAIN_RESTART_STEPS, global_batch=b, seq_len=s,
+              ckpt_every=TRAIN_CKPT_EVERY, peak_lr=1e-3, log_every=1,
+              device="cuda")
+    t0 = time.time()
+    straight = train(cfg, ckpt_dir=os.path.join(work, "straight"), **kw)
+    raised = False
+    try:
+        train(cfg, ckpt_dir=os.path.join(work, "broken"),
+              fail_at=TRAIN_FAIL_AT, **kw)
+    except SimulatedFailure:
+        raised = True
+    resumed = train(cfg, ckpt_dir=os.path.join(work, "broken"), **kw)
+    ref = {m["step"]: m for m in straight["history"]}
+    out = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "batch": b, "seq": s,
+           "steps": TRAIN_RESTART_STEPS, "fail_at": TRAIN_FAIL_AT,
+           "failure_raised": raised,
+           "resumed_steps": [m["step"] for m in resumed["history"]],
+           "losses": [m["loss"] for m in straight["history"]],
+           "losses_equal": all(m == ref[m["step"]]
+                               for m in resumed["history"]),
+           "params_equal": _leaves_equal(straight["params"],
+                                         resumed["params"]),
+           "opt_state_equal": _leaves_equal(straight["opt_state"],
+                                            resumed["opt_state"]),
+           "wall_s": time.time() - t0}
+    want = list(range(TRAIN_CKPT_EVERY, TRAIN_RESTART_STEPS))
+    ok = (raised and out["resumed_steps"] == want and out["losses_equal"]
+          and out["params_equal"] and out["opt_state_equal"])
+    return out, ([] if ok else [f"train: the restart on the card is not "
+                                f"bit-exact: {out}"])
+
+
+def train_phase(card):
+    """Phase 14: LM training on the card, (a) the launcher at full width,
+    (b) the card against the CPU, (c) the restart. Past TRAIN_CUT_AT
+    seconds of the script (a) runs TRAIN_STEPS_CUT steps (a CUT line).
+    The kernels' counts are zeroed before and read after. Returns
+    (results, launches by kernel, failures)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import cuda
+    t_start = time.time()
+    steps = TRAIN_STEPS
+    if t_start - T_START > TRAIN_CUT_AT:
+        steps = TRAIN_STEPS_CUT
+        print(f"[lm-train] CUT to {steps} steps: the script had run "
+              f"{t_start - T_START:.0f} s of its 1200 s when phase 14 began "
+              f"(past {TRAIN_CUT_AT:.0f} s)", flush=True)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    out, failures = {"steps_run": steps}, []
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        out["launcher"], more = _train_launcher(work, steps)
+        failures += more
+        print(f"[lm-train] launcher {out['launcher']}", flush=True)
+        out["vs_cpu"], more = _train_vs_cpu()
+        failures += more
+        print(f"[lm-train] vs_cpu {out['vs_cpu']}", flush=True)
+        out["restart"], more = _train_restart(work)
+        failures += more
+        print(f"[lm-train] restart {out['restart']}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    out["launches"] = launches
+    out["wall_s"] = time.time() - t_start
+    print(f"[lm-train] launches {launches}; phase 14 took "
           f"{out['wall_s']:.1f}s", flush=True)
     return out, launches, failures
 
@@ -3957,8 +4299,10 @@ def main() -> int:
 
     phase_done("3 kernels")
     # -- 4. hnsw path ----------------------------------------------------------
+    print(f"[hnsw] CUT: {HNSW_FIT_CUT}", flush=True)
     hnsw_out, hnsw_launches, failures, hnsw_fitted = hnsw_path(
-        ds.base[:HNSW_N], ds.learn, q)
+        ds.base[:HNSW_N], ds.learn[:HNSW_FIT_LEARN], q)
+    hnsw_out["cuts"] = [HNSW_FIT_CUT]
     if failures:
         return fail("; ".join(failures))
     l2_shapes[-1]["launches"] = hnsw_launches["l2_topk"]
@@ -4054,6 +4398,11 @@ def main() -> int:
     if failures:
         return fail("; ".join(failures))
     phase_done("13 lm families")
+    # -- 14. LM training --------------------------------------------------------
+    train_out, train_launches, failures = train_phase(card)
+    if failures:
+        return fail("; ".join(failures))
+    phase_done("14 lm train")
     print(f"[main] phase wall s {walls}", flush=True)
 
     extra_shapes = {name: [] for name in _build.KERNELS}
@@ -4078,7 +4427,8 @@ def main() -> int:
                    "quickstart": quick_launches[row["name"]],
                    "audit": audit_launches[row["name"]],
                    "rag": rag_launches[row["name"]],
-                   "lm_families": fam_launches[row["name"]]}
+                   "lm_families": fam_launches[row["name"]],
+                   "train": train_launches[row["name"]]}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
@@ -4091,6 +4441,7 @@ def main() -> int:
            "cold_shard_path": cshard_out, "sharded_path": shard_out,
            "quickstart_path": quick_out, "audit_path": audit_out,
            "lm_path": lm_out, "lm_families_path": fam_out,
+           "train_path": train_out,
            "kernels": kernels, "launches": launches,
            "hnsw_launches": hnsw_launches, "serve_launches": serve_launches,
            "mutate_launches": mutate_launches,
@@ -4100,7 +4451,8 @@ def main() -> int:
            "sharded_launches": shard_launches,
            "quickstart_launches": quick_launches,
            "audit_launches": audit_launches, "rag_launches": rag_launches,
-           "lm_families_launches": fam_launches}
+           "lm_families_launches": fam_launches,
+           "train_launches": train_launches}
     os.makedirs(os.path.join(HERE, "results"), exist_ok=True)
     with open(os.path.join(HERE, "results", "chip_smoke.json"), "w") as f:
         json.dump(out, f, indent=1, default=float)
@@ -4116,6 +4468,7 @@ def main() -> int:
     print(json.dumps({"audit_path": audit_out}, default=float))
     print(json.dumps({"lm_path": lm_out}, default=float))
     print(json.dumps({"lm_families_path": fam_out}, default=float))
+    print(json.dumps({"train_path": train_out}, default=float))
     print(json.dumps({"kernels": kernels}, default=float))
     print(f"[main] chip_smoke.py took {time.time() - T_START:.1f}s",
           flush=True)

@@ -1,0 +1,4 @@
+"""Atomic, step-tagged checkpoints in the reference's layout."""
+from repro_torch.ckpt.checkpoint import latest_step, restore, save
+
+__all__ = ["save", "restore", "latest_step"]

@@ -3,7 +3,7 @@
 The reference hands its arrays over with ``np.asarray`` (nothing here
 imports it); these functions turn them into the port's objects on a
 given device, so the two packages can be given the same index, the same
-predictor and the same LM weights.
+predictor, the same LM weights and the same optimizer state.
 """
 from __future__ import annotations
 
@@ -148,4 +148,44 @@ def lm_params(tree: Mapping[str, Any], cfg, device="cuda"
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = _lm_leaf(got[path], want, name).to(device)
+    return out
+
+
+_OPT_DTYPES = {np.dtype(np.float32): torch.float32,
+               np.dtype(np.int32): torch.int32}
+
+
+def _opt_leaf(v, like: torch.Tensor, name: str) -> torch.Tensor:
+    v = np.array(v)                  # a contiguous copy, 0-d kept 0-d
+    if tuple(v.shape) != tuple(like.shape):
+        raise ValueError(f"{name}: shape {v.shape}, expected "
+                         f"{tuple(like.shape)}")
+    if v.dtype.name == "bfloat16":            # by its bits, as _lm_leaf
+        t = torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
+    elif v.dtype in _OPT_DTYPES:
+        t = torch.from_numpy(v)
+    else:
+        raise TypeError(f"{name}: dtype {v.dtype}")
+    if t.dtype != like.dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the port keeps "
+                        f"{like.dtype}")
+    return t.to(like.device)
+
+
+def opt_state(tree: Mapping[str, Any], like: Mapping[str, Any],
+              path: str = "") -> Dict[str, Any]:
+    """The reference's optimizer state (``jax.tree.map(np.asarray,
+    state)``: AdamW's ``m`` / ``v`` / ``step``, Adafactor's ``leaves`` /
+    ``step``, and ``ef`` with compressed gradients) as the port's, on
+    ``like``'s devices. ``like`` is the port's state of the same
+    optimizer (``make_train_step(...)[0](params)``): every key, shape
+    and dtype must match it; a missing or extra key raises."""
+    if set(tree) != set(like):
+        raise KeyError(f"optimizer state {path or '/'}: keys "
+                       f"{sorted(tree)}, expected {sorted(like)}")
+    out: Dict[str, Any] = {}
+    for k, want in like.items():
+        name = f"{path}/{k}" if path else k
+        out[k] = (opt_state(tree[k], want, name) if isinstance(want, dict)
+                  else _opt_leaf(tree[k], want, name))
     return out

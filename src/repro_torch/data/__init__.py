@@ -1,1 +1,2 @@
-"""Synthetic vector collections (numpy only)."""
+"""Synthetic data: vector collections (``vectors``, numpy only) and the
+LM's token stream (``synthetic``)."""

@@ -55,7 +55,8 @@ def embed_texts(cfg: ArchConfig, params, tokens: torch.Tensor,
     out = []
     for lo in range(0, tokens.shape[0], chunk):
         x, _, _ = model_zoo.forward(cfg, params,
-                                    {"tokens": tokens[lo:lo + chunk]})
+                                    {"tokens": tokens[lo:lo + chunk]},
+                                    remat=False)
         mean = (x.float().sum(1) / x.shape[1]).to(x.dtype)
         out.append(mean.float().cpu().numpy())
     return np.concatenate(out)

@@ -1,7 +1,8 @@
 """Transformer layers on PyTorch (a port of the reference's
 ``repro/models/layers.py``): norms, RoPE, GQA attention (chunked
-flash-style prefill and KV-cache decode), cross-attention, the SwiGLU /
-GELU MLP, the embedding and the output projection.
+flash-style prefill and training, with the reference's memory-lean
+backward, and KV-cache decode), cross-attention, the SwiGLU / GELU MLP,
+the embedding, the output projection and the cross-entropy.
 
 Pure functions over parameter dicts. The reference computes attention
 and the MLPs in plain ``jnp`` (no Pallas kernel), so the products here
@@ -31,6 +32,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch import reduce
 
 Params = Dict[str, Any]
 
@@ -190,14 +193,92 @@ def _flash_fwd_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _flash_bwd_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                    causal: bool, q_offset: int, chunk: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's ``_flash_bwd``: per KV chunk, the probabilities are
+    recomputed from the saved log-sum-exp, never stored. Unlike the
+    forward, the scores are ``(q . k) * scale`` in f32 from the UNSCALED
+    q (scale in f32); rows whose ``lse`` is -inf get p = 0. ``p`` is
+    rounded to q's dtype for dv, ``ds = p (dp - rowsum(dout * out))
+    scale`` for dq and dk; dq accumulates in f32 over the chunks, and the
+    padded columns of dk / dv are cut. Returns (dq, dk, dv) in the
+    dtypes of q, k, v."""
+    b, sq, h, dh = q.shape
+    skv = k.shape[1]
+    dev = q.device
+    scale = float(np.float32(1.0 / np.sqrt(dh)))
+    ckv = min(chunk, skv)
+    pad = (-skv) % ckv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    nkv = (skv + pad) // ckv
+    q_pos = q_offset + torch.arange(sq, device=dev)
+    qf, dof = q.float(), dout.float()
+    d_row = torch.einsum("bqhd,bqhd->bhq", dof, out.float())
+    lse_safe = torch.where(torch.isfinite(lse), lse, 0.0)
+    dq = torch.zeros((b, sq, h, dh), device=dev)
+    dks, dvs = [], []
+    for j in range(nkv):
+        kc = k[:, j * ckv:(j + 1) * ckv].float()
+        vc = v[:, j * ckv:(j + 1) * ckv].float()
+        kv_pos = j * ckv + torch.arange(ckv, device=dev)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc) * scale
+        mask = (kv_pos[None, :] > q_pos[:, None] if causal else
+                torch.zeros((sq, ckv), dtype=torch.bool, device=dev))
+        mask = (mask | (kv_pos >= skv)[None, :])[None, None]
+        p = torch.exp(s - lse_safe[..., None]).masked_fill(mask, 0.0)
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(),
+                                dof))
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vc)
+        ds = (p * (dp - d_row[..., None]) * scale).to(q.dtype).float()
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, kc)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qf))
+    dk = torch.cat(dks, dim=1)[:, :skv]
+    dv = torch.cat(dvs, dim=1)[:, :skv]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``flash_attention`` custom VJP: the forward is
+    ``_flash_fwd_core`` (its value unchanged), saving q, k, v, the output
+    and the log-sum-exp; the backward is ``_flash_bwd_core``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, chunk):
+        out, lse = _flash_fwd_core(q, k, v, causal, q_offset, chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, q_offset, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return _flash_bwd_core(q, k, v, out, lse, dout, *ctx.args) + (
+            None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, q_offset: int = 0,
+                    chunk: int = 512) -> torch.Tensor:
+    """Flash-style attention with a memory-lean backward (train /
+    prefill): q [B, Sq, H, Dh], k / v [B, Skv, H, Dh] (kv heads already
+    repeated) -> [B, Sq, H, Dh] in q's dtype."""
+    return _FlashAttention.apply(q, k, v, causal, q_offset, chunk)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, q_offset: int = 0,
                       chunk: int = 512,
                       kv_valid_len: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """The reference's ``chunked_attention``: with ``kv_valid_len`` its
-    decode path, without it the forward of ``flash_attention`` (the same
-    float path; the backward comes with training)."""
+    decode path (the forward core alone), without it ``flash_attention``
+    (the same forward, and a backward)."""
+    if kv_valid_len is None:
+        return flash_attention(q, k, v, causal, q_offset, chunk)
     return _flash_fwd_core(q, k, v, causal, q_offset, chunk, kv_valid_len)[0]
 
 
@@ -205,7 +286,7 @@ def gqa_attention(params: Params, x: torch.Tensor, dims: AttnDims, *,
                   positions: Optional[torch.Tensor] = None,
                   causal: bool = True, rope_theta: float = 1e4,
                   chunk: int = 512, use_rope: bool = True) -> torch.Tensor:
-    """Self-attention over a full sequence (prefill)."""
+    """Self-attention over a full sequence (train / prefill)."""
     b, s, _ = x.shape
     h, kv, dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
     if positions is None:
@@ -318,7 +399,9 @@ def swiglu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, table)
+    """``table``'s rows by ``tokens``; the table's gradient sums repeated
+    tokens in a fixed order (``reduce.gather_rows``)."""
+    return reduce.gather_rows(table, tokens)
 
 
 def logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -326,3 +409,11 @@ def logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     in the promoted dtype of the two, as ``jnp.einsum`` promotes."""
     dt = torch.promote_types(x.dtype, table.dtype)
     return torch.einsum("bsd,vd->bsv", x.to(dt), table.to(dt))
+
+
+def cross_entropy(logits_: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean token cross-entropy. logits: [B, S, V] (taken in f32), labels:
+    int [B, S]."""
+    lz = torch.log_softmax(logits_.float(), dim=-1)
+    return -lz.gather(-1, labels[..., None].long())[..., 0].mean()

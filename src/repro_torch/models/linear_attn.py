@@ -50,8 +50,9 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 # Instrumentation: while LOGP_MAX is a list, chunked_linear_attention
 # appends to it each chunk's largest |logp| (the within-chunk cumulative
-# log decay), as a device scalar (no host sync). exp(-logp) scales the
-# chunk's keys, and f32 overflows past e^88.7.
+# log decay), as a detached device scalar (no host sync, nothing saved
+# for autograd). exp(-logp) scales the chunk's keys, and f32 overflows
+# past e^88.7.
 LOGP_MAX: Optional[list] = None
 
 
@@ -92,7 +93,7 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
         qi, ki, vi, wi = sl(q), sl(k), sl(v), sl(log_w)      # [B, H, c, *]
         logp = torch.cumsum(wi, dim=2)              # inclusive cumulative
         if LOGP_MAX is not None:
-            LOGP_MAX.append(logp.abs().amax())
+            LOGP_MAX.append(logp.detach().abs().amax())
         p_end = logp[:, :, -1:, :]                  # [B, H, 1, dk]
         # query-side decay: inclusive (mamba) or exclusive (rwkv strict)
         q_dec = logp - wi if strict else logp

@@ -13,9 +13,10 @@ its stacked leading layer axis, so the reference's tree carries across
 leaf for leaf (``repro_torch.convert.lm_params``). Storage is f32, bf16
 for kimi; the blocks compute in bf16, the logits in f32.
 
-Not ported here: training (``loss_fn``, ``chunked_ce_loss``; ROADMAP
-Queue 1 item 4.3) and the dry-run's ``input_specs`` / ``abstract_params``
-(item 4.4).
+Training: ``loss_fn`` (``chunked_ce_loss`` over sequence chunks, plus
+0.01 x the MoE's aux loss) over ``forward(remat=True)``. Not ported
+here: the dry-run's ``input_specs`` / ``abstract_params`` (ROADMAP
+Queue 1 item 4.5).
 """
 from __future__ import annotations
 
@@ -230,35 +231,100 @@ def _embed_inputs(cfg: ArchConfig, params: Params,
 
 
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, chunk: int = 512
+            *, remat: bool = True, chunk: int = 512
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                        Dict[str, torch.Tensor]]:
     """Full causal forward -> (hidden [B, S, d] bf16, loss weights,
     metrics). ``batch`` holds "tokens" [B, S] (and "patches" [B, P, Dv]
     for a VLM, "frames" [B, F, Df] for audio) on the parameters' device.
     ``chunk`` is the attention's KV chunk; the linear attention's is 64
-    (the sequence a multiple of it, or shorter)."""
+    (the sequence a multiple of it, or shorter). ``remat`` recomputes each
+    layer's activations in the backward pass (the value is the same, bit
+    for bit); whisper's encoder is not rematerialised, as in the
+    reference."""
     x, weights, enc = _embed_inputs(cfg, params, batch)
     metrics: Dict[str, torch.Tensor] = {}
     if cfg.family in ("dense", "moe", "vlm"):
         x, metrics = transformer.dense_stack(cfg, params["blocks"], x,
-                                             causal=True, chunk=chunk)
+                                             causal=True, remat=remat,
+                                             chunk=chunk)
     elif cfg.family == "ssm":
         if cfg.rope_theta == 0:
             x = _add_positions(x, x.shape[1])
-        x = transformer.rwkv_stack(cfg, params["blocks"], x)
+        x = transformer.rwkv_stack(cfg, params["blocks"], x, remat=remat)
     elif cfg.family == "hybrid":
-        x = transformer.zamba_stack(cfg, params, x, attn_chunk=chunk)
+        x = transformer.zamba_stack(cfg, params, x, remat=remat,
+                                    attn_chunk=chunk)
     elif cfg.family == "audio":
         x = _add_positions(x, x.shape[1])
+
+        def body(p, h):
+            return transformer.attn_block(cfg, p, h, enc=enc, causal=True,
+                                          chunk=chunk)[0]
         for l in range(cfg.num_layers):
-            x, _ = transformer.attn_block(
-                cfg, transformer.layer(params["blocks"], l), x, enc=enc,
-                causal=True, chunk=chunk)
+            x = transformer.remat_call(
+                body, remat, transformer.layer(params["blocks"], l), x)
     else:
         raise ValueError(cfg.family)
     x = layers.apply_norm(cfg.norm, x, params.get("final_norm"))
     return x, weights, metrics
+
+
+def _ce_chunk(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+              weights: torch.Tensor) -> torch.Tensor:
+    """One chunk's weighted NLL sum: x [B, c, d] bf16 against the bf16
+    table [V, d] as an f32 product (exact f32 copies; the reference's
+    ``preferred_element_type=f32``), logits [B, c, V] f32."""
+    logits = x.float() @ table.float().T
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return ((lse - gold) * weights).sum()
+
+
+def chunked_ce_loss(x: torch.Tensor, table: torch.Tensor,
+                    labels: torch.Tensor,
+                    weights: Optional[torch.Tensor] = None,
+                    chunk: int = 512) -> torch.Tensor:
+    """Mean weighted cross-entropy without holding [B, S, V]: a loop over
+    sequence chunks of ``chunk`` (the last padded with weight 0), the
+    table cast to x's dtype once, each chunk's logits in f32. Under
+    autograd each chunk is recomputed in the backward pass, so only one
+    chunk's logits live at a time. x: [B, S, d], table: [V, d], labels:
+    int [B, S], weights: f32 [B, S] or None (all 1)."""
+    b, s, _ = x.shape
+    c = min(chunk, s)
+    pad = (-s) % c
+    if weights is None:
+        weights = torch.ones((b, s), device=x.device)
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        weights = torch.nn.functional.pad(weights, (0, pad))
+    table_c = table.to(x.dtype)            # one cast, out of the loop
+    tot = cnt = torch.zeros((), device=x.device)
+    for i in range(0, s + pad, c):
+        xi, li, wi = x[:, i:i + c], labels[:, i:i + c], weights[:, i:i + c]
+        tot = tot + transformer.remat_call(
+            _ce_chunk, torch.is_grad_enabled(), xi, table_c, li, wi)
+        cnt = cnt + wi.sum()
+    return tot / cnt.clamp_min(1.0)
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, remat: bool = True, chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics): the chunked cross-entropy of ``forward``'s hidden
+    states against ``batch["labels"]`` (a VLM's patch positions weigh 0),
+    plus 0.01 x the MoE's aux loss; metrics are the model's, and
+    "ce_loss" is that sum, as the reference names it."""
+    x, weights, metrics = forward(cfg, params, batch, remat=remat,
+                                  chunk=chunk)
+    loss = chunked_ce_loss(x, _out_table(cfg, params), batch["labels"],
+                           weights)
+    if "moe_aux_loss" in metrics:
+        loss = loss + 0.01 * metrics["moe_aux_loss"]
+    metrics["ce_loss"] = loss
+    return loss, metrics
 
 
 def _f32_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -269,7 +335,7 @@ def _f32_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def prefill(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, chunk: int = 512) -> torch.Tensor:
     """Prefill forward; returns the last position's logits [B, V] f32."""
-    x, _, _ = forward(cfg, params, batch, chunk=chunk)
+    x, _, _ = forward(cfg, params, batch, remat=False, chunk=chunk)
     return _f32_logits(x[:, -1, :], _out_table(cfg, params))
 
 

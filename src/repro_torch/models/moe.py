@@ -20,6 +20,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch import reduce
 from repro_torch.models.layers import silu
 
 Params = Dict[str, torch.Tensor]
@@ -94,10 +95,13 @@ def moe_ffn(params: Params, x: torch.Tensor, *, experts_per_token: int,
     slot_tok.scatter_(1, slot_idx, st_ + 1)
     slot_tok = slot_tok[:, :e * cap]
 
+    # The token rows by slot (row 0 of each group is zeros). A token sits
+    # in up to k slots, so the gradient of its row is a sum: gather_rows
+    # adds it in a fixed order (no float atomics on the card).
     xg_pad = torch.cat([torch.zeros_like(xg[:, :1]), xg], dim=1)
-    gathered = torch.gather(
-        xg_pad, 1, slot_tok[..., None].expand(g, e * cap, d)
-    ).reshape(g, e, cap, d)
+    rows = slot_tok + (tg + 1) * torch.arange(g, device=dev)[:, None]
+    gathered = reduce.gather_rows(xg_pad.reshape(g * (tg + 1), d), rows
+                                  ).reshape(g, e, cap, d)
 
     gate = silu(_expert_product(gathered, params["wg"], "gecd,edf->gecf"))
     hidden = _expert_product(gathered, params["wi"], "gecd,edf->gecf") * gate

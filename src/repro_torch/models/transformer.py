@@ -7,13 +7,16 @@ zamba (Mamba2 groups around one shared attention block) stacks.
 
 Block parameters keep the reference's stacked leading layer axis, so
 block ``l`` is ``layer(blocks, l)``; a stack is a Python loop over that
-axis (serving needs no scan and no rematerialisation).
+axis. With ``remat`` a stack recomputes each body in the backward pass
+instead of keeping its activations (``torch.utils.checkpoint``, at the
+reference's ``jax.checkpoint`` boundaries: a layer; a zamba group).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers, linear_attn, moe as moe_lib
@@ -55,6 +58,28 @@ def layer(blocks: Params, l: int) -> Params:
     """Block ``l``'s parameters: a view of each stacked leaf at ``l``."""
     return {k: layer(v, l) if isinstance(v, dict) else v[l]
             for k, v in blocks.items()}
+
+
+def remat_call(fn: Callable, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` under ``checkpoint(use_reentrant=
+    False)``, so the backward pass recomputes ``fn``'s activations. The
+    recompute runs with ``linear_attn.LOGP_MAX`` off: the hook records a
+    chunk once, in the real forward."""
+    if not remat:
+        return fn(*args)
+    calls = []
+
+    def body(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return fn(*a)
+        hook, linear_attn.LOGP_MAX = linear_attn.LOGP_MAX, None
+        try:
+            return fn(*a)
+        finally:
+            linear_attn.LOGP_MAX = hook
+
+    return checkpoint(body, *args, use_reentrant=False)
 
 
 def attn_block(cfg: ArchConfig, p: Params, x: torch.Tensor, *,
@@ -128,15 +153,17 @@ def attn_block_decode(cfg: ArchConfig, p: Params, x: torch.Tensor,
 
 
 def dense_stack(cfg: ArchConfig, blocks: Params, x: torch.Tensor, *,
-                causal: bool = True, chunk: int = 512
+                causal: bool = True, remat: bool = False, chunk: int = 512
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Attention-family stack (dense/moe/vlm) over the stacked ``blocks``
     (``cfg.num_layers`` of them). Metrics (the MoE's drop fraction and aux
     loss) are averaged over the layers."""
+    def body(p, h):
+        return attn_block(cfg, p, h, causal=causal, chunk=chunk)
+
     per_layer = []
     for l in range(cfg.num_layers):
-        x, m = attn_block(cfg, layer(blocks, l), x, causal=causal,
-                          chunk=chunk)
+        x, m = remat_call(body, remat, layer(blocks, l), x)
         per_layer.append(m)
     metrics = {k: torch.stack([m[k] for m in per_layer]).sum()
                / len(per_layer) for k in per_layer[0]}
@@ -201,28 +228,39 @@ def mamba_block_decode(cfg: ArchConfig, p: Params, x: torch.Tensor,
 
 
 def rwkv_stack(cfg: ArchConfig, blocks: Params, x: torch.Tensor, *,
-               chunk: int = 64) -> torch.Tensor:
+               remat: bool = False, chunk: int = 64) -> torch.Tensor:
+    def body(p, h):
+        return rwkv_block(cfg, p, h, chunk=chunk)
+
     for l in range(cfg.num_layers):
-        x = rwkv_block(cfg, layer(blocks, l), x, chunk=chunk)
+        x = remat_call(body, remat, layer(blocks, l), x)
     return x
 
 
 def zamba_stack(cfg: ArchConfig, params: Params, x: torch.Tensor, *,
-                chunk: int = 64, attn_chunk: int = 512) -> torch.Tensor:
+                remat: bool = False, chunk: int = 64,
+                attn_chunk: int = 512) -> torch.Tensor:
     """Mamba2 backbone with one SHARED attention block every attn_every
     layers. Layout: groups of (attn_every Mamba blocks, then the shared
     attention block), params["groups"] stacked [G, g, ...]; then a tail
     of the leftover Mamba blocks, params["tail"] (absent when g divides
-    the depth)."""
+    the depth). With ``remat`` each group (its Mamba blocks and the
+    shared block) and each tail block is one recomputed body."""
     g = cfg.attn_every
-    for gi in range(cfg.num_layers // g):
-        group = layer(params["groups"], gi)
+
+    def group_body(group, shared, h):
         for l in range(g):
-            x = mamba_block(cfg, layer(group, l), x, chunk=chunk)
-        x, _ = attn_block(cfg, params["shared_attn"], x, causal=True,
-                          chunk=attn_chunk)
+            h = mamba_block(cfg, layer(group, l), h, chunk=chunk)
+        return attn_block(cfg, shared, h, causal=True, chunk=attn_chunk)[0]
+
+    def tail_body(p, h):
+        return mamba_block(cfg, p, h, chunk=chunk)
+
+    for gi in range(cfg.num_layers // g):
+        x = remat_call(group_body, remat, layer(params["groups"], gi),
+                       params["shared_attn"], x)
     tail = params.get("tail")
     if tail:
         for l in range(cfg.num_layers % g):
-            x = mamba_block(cfg, layer(tail, l), x, chunk=chunk)
+            x = remat_call(tail_body, remat, layer(tail, l), x)
     return x

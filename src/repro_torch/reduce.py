@@ -3,7 +3,9 @@
 ``index_add_`` on a CUDA tensor adds floats with atomics, in whatever
 order the threads arrive, so the same inputs can give sums that differ
 in their last bits from one call to the next. The GBDT fit's histograms
-and leaves and the Lloyd step's sums go through ``index_sum`` instead.
+and leaves, the Lloyd step's sums and the gradients of gathered rows
+(the LM's embedding and MoE dispatch, ``gather_rows``) go through
+``index_sum`` instead.
 
 On the card it rounds every value to a 64-bit integer fixed point whose
 scale leaves room for the largest possible sum, adds the integers (exact,
@@ -46,3 +48,31 @@ def fixed_point_index_sum(index: torch.Tensor, values: torch.Tensor,
     acc = torch.zeros(shape, dtype=torch.int64,
                       device=v.device).index_add_(0, index, fixed)
     return (acc.double() / scale).to(values.dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``src[index]`` whose backward sums the rows that share an index
+    through ``index_sum``: a fixed order on the card, row order on the
+    CPU. (``torch.gather``'s backward is a ``scatter_add``, float atomics
+    on the card wherever an index repeats; ``F.embedding``'s order is its
+    kernel's to choose.)"""
+
+    @staticmethod
+    def forward(ctx, src, index):
+        ctx.save_for_backward(index)
+        ctx.rows = src.shape[0]
+        return src[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, = ctx.saved_tensors
+        flat = index.reshape(-1)
+        rows = grad.reshape((flat.shape[0],) + tuple(grad.shape[index.dim():]))
+        return index_sum(flat, rows, ctx.rows), None
+
+
+def gather_rows(src: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """Rows of ``src`` by ``index`` (any shape of integers): ``src[index]``,
+    [*index.shape, *src.shape[1:]]. Its gradient repeats bit for bit on
+    the card (``_GatherRows``)."""
+    return _GatherRows.apply(src, index)

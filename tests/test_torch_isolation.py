@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the ``repro``
-package, and its entry points default to the card."""
+package (nor ``msgpack``, which the card's machine lacks), and its entry
+points default to the card."""
 import os
 import subprocess
 import sys
@@ -17,13 +18,15 @@ _BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None        # any import of these now raises
 sys.modules["repro"] = None
+sys.modules["msgpack"] = None
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+print(" ".join(names))
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-       or m == "repro" or m.startswith("repro.")]
+       or m == "repro" or m.startswith("repro.") or m == "msgpack"]
 assert all(sys.modules[m] is None for m in bad), bad
 print(len(names))
 """
@@ -35,9 +38,14 @@ def test_port_imports_without_jax_or_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20
+    for module in ("optim.adamw", "optim.schedule", "optim.grad_compress",
+                   "train.step", "train.loop", "ckpt.checkpoint",
+                   "ckpt.msgpack_lite", "data.synthetic", "launch.train",
+                   "examples.train_lm"):
+        assert f"repro_torch.{module}" in out.stdout, module
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default is usable")
     from repro_torch import convert
@@ -68,3 +76,18 @@ def test_entry_points_default_to_the_card():
         == "cpu"
     with pytest.raises((AssertionError, RuntimeError)):
         rag_serve.main(n_docs=16, n_req=2)
+    # training: the token stream, the loop, the launcher
+    from repro_torch.data.synthetic import PipelineConfig, TokenPipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import train
+    stream = PipelineConfig(vocab_size=8, seq_len=4, global_batch=2)
+    with pytest.raises((AssertionError, RuntimeError)):
+        TokenPipeline(stream).get_batch(0)
+    assert TokenPipeline(stream, "cpu").get_batch(0)["tokens"].device.type \
+        == "cpu"
+    with pytest.raises((AssertionError, RuntimeError)):
+        train(cfg, steps=1, global_batch=2, seq_len=4,
+              ckpt_dir=str(tmp_path / "loop"), ckpt_every=0)
+    with pytest.raises((AssertionError, RuntimeError)):
+        launch_train.main(["--arch", "smollm-360m", "--steps", "1",
+                           "--ckpt-dir", str(tmp_path / "launch")])
