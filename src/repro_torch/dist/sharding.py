@@ -1,5 +1,30 @@
-"""Index placement on a search or serve mesh (a port of the index and
-slot part of ``repro.dist.sharding``): ``place_index`` for an IVF index,
+"""Placement rules on a mesh (a port of the reference's
+``repro/dist/sharding.py``), in two halves.
+
+The LM half: per-leaf ``PartitionSpec`` rules for parameter trees
+(``param_spec``, ``param_shardings``), optimizer state
+(``opt_shardings``: AdamW's ``m`` / ``v``, Adafactor's factored
+moments, the error-feedback ``ef`` buffer), input batches
+(``batch_shardings``) and decode caches (``cache_shardings``). A spec is
+the reference's ``PartitionSpec`` as a plain tuple with one entry per
+tensor dim: None, an axis name, or a tuple of names. "tp" resolves to
+the ``"model"`` axis, "dp" to ``("pod", "data")``, whichever of those
+the mesh has, and every rule is divisibility-checked per dim: an axis
+of size 1, or one that does not divide the dim, drops out (replication),
+so the (1, 1) host mesh and odd sizes never raise. The rules read only
+axis names and sizes, so they take a ``DeviceMesh``, a ``SearchMesh`` or
+any object with ``axis_names`` and a ``shape`` dict alike.
+``placements`` turns a spec into DTensor placements on a ``DeviceMesh``
+and ``distribute`` places a tree by them.
+
+Weight layout convention (the matmuls in ``models/layers.py``): input
+projections [.., d_in, d_out] put d_in over dp (FSDP) and d_out over tp
+(column-parallel); output projections [.., d_out, d_in] (wo / out_proj /
+cv) put the contracted dim over tp (row-parallel) and the other over dp;
+leading stacked axes (layers, experts) are never sharded; vectors,
+norm scales, per-head scalars, depthwise convs and the router replicate.
+
+The index half: ``place_index`` for an IVF index,
 an HNSW graph and a mutable view of either, ``refresh_placed_view``, the
 row padding of a flat database (``database_shards``), and the slot rule
 of the multi-host pool (``slot_sharding``, ``constrain_slots``).
@@ -20,7 +45,7 @@ is held once, whatever the number of host groups.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -28,6 +53,7 @@ from repro_torch.core.padding import PAD_ID, PAD_SQNORM
 from repro_torch.index.hnsw import HNSWIndex
 from repro_torch.index.ivf import IVFIndex
 from repro_torch.launch.mesh import HOSTS_AXIS, SHARD_AXIS, SearchMesh
+from repro_torch.utils import meshctx
 
 # Bucket-store arrays whose cap dim (axis 1) is split across shards, with
 # their pad values. bucket_sizes [nlist] is NOT here: it replicates, so
@@ -373,3 +399,232 @@ def constrain_slots(tree, mesh: SearchMesh, num_slots: int) -> List[Any]:
             return tuple(cut(v, sl, dev) for v in x)
         return x
     return [cut(tree, sl, dev) for sl, dev in zip(groups, leads)]
+
+
+# ---------------------------------------------------------------------------
+# LM placement: specs for parameters, optimizer state, batches and caches
+# ---------------------------------------------------------------------------
+
+Spec = Tuple[Any, ...]
+
+
+class NamedSharding(NamedTuple):
+    """A (mesh, spec) pair: where one leaf lives (the counterpart of
+    ``jax.sharding.NamedSharding``). ``placements(mesh, spec)`` gives its
+    DTensor placements on a ``DeviceMesh``."""
+    mesh: Any
+    spec: Spec
+
+
+# Row-parallel (output) projections: the first of the trailing two dims
+# is the contracted one.
+_OUT_PROJ_NAMES = frozenset({"wo", "out_proj", "cv"})
+
+# Always replicated whatever the shape: per-channel gains, SSM / RWKV
+# per-head scalars, depthwise conv stencils, the router's table.
+_REPLICATED_NAMES = frozenset({
+    "scale", "ln_x_scale", "norm_scale", "w0", "dt_bias", "a_log",
+    "d_skip", "bonus_u", "conv_w", "router",
+})
+
+_KV_CACHE_NAMES = frozenset({"k", "v", "ck", "cv", "shared_k", "shared_v"})
+
+
+def _resolve_logical(mesh, logical) -> Optional[Tuple[str, ...]]:
+    """A logical axis name (or a tuple of mesh axis names) -> the tuple
+    of mesh axes present on this mesh, or None."""
+    names = meshctx.axis_names(mesh)
+    if logical is None:
+        return None
+    if isinstance(logical, (tuple, list)):
+        axes = tuple(a for a in logical if a in names)
+        return axes or None
+    if logical == "dp":
+        axes = tuple(a for a in ("pod", "data") if a in names)
+        return axes or None
+    if logical == "tp":
+        return ("model",) if "model" in names else None
+    # "hosts" (the serve mesh) and any concrete axis name resolve to
+    # themselves when the mesh has them.
+    return (logical,) if logical in names else None
+
+
+def spec_for(mesh, shape: Sequence[int],
+             logical: Sequence[Any]) -> Spec:
+    """Divisibility-checked spec from per-dim logical axes: an entry
+    keeps its axes iff their product is > 1 and divides the dim."""
+    entries = []
+    for dim, ax in zip(shape, logical):
+        axes = _resolve_logical(mesh, ax)
+        if axes is None:
+            entries.append(None)
+            continue
+        size = 1
+        for a in axes:
+            size *= meshctx.axis_size(mesh, a)
+        if size > 1 and dim % size == 0:
+            entries.append(axes[0] if len(axes) == 1 else axes)
+        else:
+            entries.append(None)
+    return tuple(entries)
+
+
+def replicated(mesh) -> NamedSharding:
+    """Fully replicated (the empty spec)."""
+    return NamedSharding(mesh, ())
+
+
+def _param_logical(name: str, ndim: int) -> Tuple[Optional[str], ...]:
+    """Logical axes of one parameter leaf, by its name and rank."""
+    if ndim < 2 or name in _REPLICATED_NAMES or name.startswith("mu_"):
+        return (None,) * ndim
+    trailing = ("tp", "dp") if name in _OUT_PROJ_NAMES else ("dp", "tp")
+    return (None,) * (ndim - 2) + trailing
+
+
+def param_spec(name: str, shape: Sequence[int], mesh) -> Spec:
+    """The spec of one named parameter (``_param_logical``)."""
+    return spec_for(mesh, shape, _param_logical(name, len(shape)))
+
+
+def _map_named(fn, tree, name: str = ""):
+    """``fn(name, leaf)`` over a tree of nested dicts, ``name`` the leaf's
+    own key."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, str(k)) for k, v in tree.items()}
+    return fn(name, tree)
+
+
+def param_shardings(tree, mesh):
+    """A ``NamedSharding`` per leaf of ``tree`` (tensors, meta tensors or
+    anything with a ``shape``), by ``param_spec``."""
+    return _map_named(lambda name, leaf: NamedSharding(
+        mesh, param_spec(name, tuple(leaf.shape), mesh)), tree)
+
+
+def _padded_spec(sharding: NamedSharding, ndim: int) -> Spec:
+    spec = tuple(sharding.spec)
+    return spec + (None,) * (ndim - len(spec))
+
+
+def _factored_shardings(p_sharding: NamedSharding, state_leaf: dict,
+                        mesh) -> dict:
+    """Shardings of one Adafactor per-leaf dict ({v_row, v_col, m} for a
+    factored leaf, {v, m} otherwise), derived from the parameter's spec
+    so the moments stay with their parameter's shards: v_row / v_col
+    drop one reduced dim each, and that dim's entry."""
+    out = {}
+    for key, arr in state_leaf.items():
+        spec = _padded_spec(p_sharding, arr.ndim + 1)   # the param's rank
+        if key == "v_row":      # param [.., R, C] -> [.., R]
+            out[key] = NamedSharding(mesh, spec[:-1])
+        elif key == "v_col":    # param [.., R, C] -> [.., C]
+            out[key] = NamedSharding(mesh, spec[:-2] + spec[-1:])
+        else:                   # "m", "v": the parameter's shape
+            out[key] = p_sharding
+    return out
+
+
+def _map_up_to(fn, structure, tree):
+    """``fn(s, t)`` at each leaf ``s`` of ``structure`` with the subtree
+    ``t`` at the same place in ``tree``."""
+    if isinstance(structure, dict):
+        return {k: _map_up_to(fn, v, tree[k]) for k, v in structure.items()}
+    return fn(structure, tree)
+
+
+def opt_shardings(opt_state: dict, params, mesh) -> dict:
+    """Shardings of an optimizer state, leaf for leaf with
+    ``param_shardings(params, mesh)``: AdamW's {"m", "v", "step"},
+    Adafactor's {"leaves": per parameter {v_row, v_col, m} or {v, m},
+    "step"}, and the error-feedback buffer "ef" (the parameters'
+    structure); "step" and any other bookkeeping replicate."""
+    p_sh = param_shardings(params, mesh)
+    rep = replicated(mesh)
+    out = {}
+    for key, sub in opt_state.items():
+        if key == "leaves":
+            out[key] = _map_up_to(
+                lambda s, d: _factored_shardings(s, d, mesh), p_sh, sub)
+        elif key in ("m", "v", "ef"):
+            out[key] = _map_up_to(lambda s, _: s, p_sh, sub)
+        else:
+            out[key] = _map_named(lambda _n, _l: rep, sub)
+    return out
+
+
+def batch_shardings(batch, mesh, kind: str = "train"):
+    """Input batches split their leading (global batch) dim over dp; the
+    other dims replicate (sequence sharding is an activation matter,
+    meshctx's "sp"). ``kind`` train / prefill / decode share the rule;
+    "serve" splits the slot dim over the "hosts" axis only."""
+    lead = "hosts" if kind == "serve" else "dp"
+    return _map_named(lambda _n, x: NamedSharding(mesh, spec_for(
+        mesh, tuple(x.shape), (lead,) + (None,) * (len(x.shape) - 1))),
+        batch)
+
+
+def cache_shardings(cache, mesh):
+    """Decode caches: the batch dim over dp, the kv-head dim of attention
+    caches over tp. The batch dim sits past the stacked layer axes: at 2
+    under the hybrid "groups" subtree ([n_groups, group, batch, ..]), at
+    1 everywhere else."""
+    def walk(tree, keys):
+        if isinstance(tree, dict):
+            return {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
+        ndim = len(tree.shape)
+        bdim = 2 if "groups" in keys[:-1] else 1
+        logical = [None] * ndim
+        if ndim > bdim:
+            logical[bdim] = "dp"
+        if keys and keys[-1] in _KV_CACHE_NAMES and ndim >= 5:
+            logical[-2] = "tp"
+        return NamedSharding(mesh, spec_for(mesh, tuple(tree.shape),
+                                            logical))
+    return walk(cache, ())
+
+
+def placements(mesh, spec: Sequence[Any]) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: mesh dim i is
+    ``Shard(d)`` where spec entry d names it, ``Replicate()`` otherwise.
+    Several mesh axes on one tensor dim split it major to minor in the
+    mesh's own order (the only order plain ``Shard`` placements can
+    express; another order raises)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = meshctx.axis_names(mesh)
+    where = {}
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} lists mesh axes out of the "
+                             f"mesh's order {names}")
+        for a in axes:
+            if a in where:
+                raise ValueError(f"mesh axis {a!r} shards dims {where[a]} "
+                                 f"and {dim} of spec {tuple(spec)}")
+            where[a] = dim
+    return tuple(Shard(where[a]) if a in where else Replicate()
+                 for a in names)
+
+
+def gather(tree):
+    """Each DTensor of a tree of nested dicts as the whole tensor
+    (``full_tensor()``: a collective in a world of several ranks; on a
+    replicated one-rank mesh the local tensor itself); other leaves
+    kept."""
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+    return _map_named(lambda _n, t: whole(t), tree)
+
+
+def distribute(tree, shardings):
+    """Each tensor of ``tree`` placed by the ``NamedSharding`` at its
+    place in ``shardings`` (``distribute_tensor``: a DTensor whose shards
+    are cut from the whole tensor)."""
+    from torch.distributed.tensor import distribute_tensor
+    return _map_up_to(lambda sh, t: distribute_tensor(
+        t, sh.mesh, placements(sh.mesh, _padded_spec(sh, t.ndim))),
+        shardings, tree)

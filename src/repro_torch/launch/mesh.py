@@ -1,10 +1,18 @@
-"""Search and serve meshes: which devices hold the shards of a sharded
-index, and which host group steps which slots (a port of the mesh part
-of ``repro.launch.mesh``).
+"""Meshes (a port of ``repro.launch.mesh``): the LM's production and
+host meshes, and the search and serve meshes of the sharded index.
 
-The reference runs one program over a ``jax.sharding.Mesh``; the port
-runs one controller that steps every shard in turn. A ``SearchMesh`` is
-therefore only names and devices: the ``"model"`` axis, whose shards
+The LM's meshes (``make_production_mesh``, ``make_host_mesh``) are
+``torch.distributed`` ``DeviceMesh`` objects with the reference's shapes
+and axis names, one rank per device. They are functions: importing this
+module touches no process group. They use the process group that
+stands, whose world must hold exactly the mesh's devices: a launcher on
+one card makes a world of 1; the dry run makes a world of 256 or 512
+fake ranks (``torch.distributed``'s "fake" backend), the production
+mesh's size, as the reference's dry run forces 512 placeholder devices.
+
+The reference searches as one program over a ``jax.sharding.Mesh``;
+the port's search runs one controller that steps every shard in turn. A
+``SearchMesh`` is therefore only names and devices: the ``"model"`` axis, whose shards
 split an index's rows (``dist.sharding.place_index``), an optional
 ``"hosts"`` axis in front of it, whose host groups split the slot pool
 (``dist.sharding.slot_sharding``), and one ``torch.device`` per (host
@@ -12,7 +20,8 @@ group, shard), in row-major order. Shards may share a device:
 ``make_search_mesh(4, "cuda:0")`` puts four shards on one card, as the
 reference's forced host device count puts several devices on one CPU.
 
-Building a mesh touches no device state beyond counting the cards.
+Building a search mesh touches no device state beyond counting the
+cards.
 """
 from __future__ import annotations
 
@@ -79,6 +88,44 @@ class SearchMesh:
         return tuple(self.host(h) for h in range(self.num_hosts))
 
 
+PRODUCTION_SHAPE = (16, 16)
+PRODUCTION_AXES = ("data", "model")
+MULTI_POD_SHAPE = (2, 16, 16)
+MULTI_POD_AXES = ("pod", "data", "model")
+
+
+def _device_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+                 device_type: str):
+    """A ``DeviceMesh`` of ``shape`` over the standing process group,
+    whose world size must be the mesh's size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    size = 1
+    for n in shape:
+        size *= n
+    if not dist.is_initialized():
+        raise ValueError(f"a {shape} mesh needs a process group of {size} "
+                         f"ranks; none is initialised")
+    world = dist.get_world_size()
+    if world != size:
+        raise ValueError(f"a {shape} mesh needs a world of {size} ranks, "
+                         f"the process group has {world}")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
+    """16 x 16 = 256 devices a pod, ("data", "model"); 2 pods = 512 when
+    ``multi_pod``, ("pod", "data", "model")."""
+    if multi_pod:
+        return _device_mesh(MULTI_POD_SHAPE, MULTI_POD_AXES, device_type)
+    return _device_mesh(PRODUCTION_SHAPE, PRODUCTION_AXES, device_type)
+
+
+def make_host_mesh(device_type="cuda"):
+    """A one-device mesh with the production axis names, (1, 1)."""
+    return _device_mesh((1, 1), PRODUCTION_AXES, device_type)
+
+
 def make_search_mesh(num_shards: int = 0, device="cuda") -> SearchMesh:
     """1-D ``("model",)`` mesh for sharded ANN search.
 
@@ -138,7 +185,11 @@ def make_serve_mesh(hosts: int = 1, shards: int = 0,
     return SearchMesh((HOSTS_AXIS, SHARD_AXIS), (hosts, n), flat.devices)
 
 
-def describe(mesh: SearchMesh) -> str:
+def describe(mesh) -> str:
+    """The mesh's sizes and axis names (the reference's line), and for a
+    ``SearchMesh`` the devices it lives on."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return f"mesh{tuple(mesh.shape)} axes={tuple(mesh.mesh_dim_names)}"
     devs = sorted({str(d) for d in mesh.devices})
     return (f"mesh{tuple(mesh.sizes)} axes={mesh.axis_names} on "
             f"{','.join(devs)}")

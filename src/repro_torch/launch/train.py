@@ -1,12 +1,17 @@
-"""The LM training launcher on one device (a port of the reference's
+"""The mesh-aware LM training launcher (a port of the reference's
 ``repro/launch/train.py``): the same flags and print lines over the loop
 of ``repro_torch.train.loop`` (resume from the newest checkpoint, a
 checkpoint every ``--ckpt-every`` steps and one at the end).
 
-The reference runs the loop under its production (16 x 16 / 2 x 16 x 16)
-or host mesh with ``param_shardings``; those wait for the port's
-multi-device tooling (ROADMAP Queue 1 item 4.5), so this launcher runs
-on the one device ``--device`` names.
+As the reference does, it runs under a mesh: the host mesh (1, 1) in a
+world of one rank, the production mesh (16 x 16) in a world of 256 or
+(2 x 16 x 16) 512; any other world raises. Parameters and optimizer
+state are placed by ``dist.sharding``'s rules, each step runs under
+``use_mesh(mesh, sp=True)`` and a resume restores to the same
+placements. Without a standing process group it opens a world of one
+rank on ``--device`` (NCCL on the card, gloo on the CPU) and closes it
+at the end. On the host mesh every placement replicates, so a run
+equals the loop without a mesh bit for bit.
 
 Usage (on the card; ``--device cpu`` runs the same on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
@@ -15,13 +20,17 @@ Usage (on the card; ``--device cpu`` runs the same on the CPU):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import tempfile
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import ckpt, configs
+from repro_torch.dist import sharding as sh
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.train import loop
 
 
@@ -54,13 +63,47 @@ def _describe(device: torch.device) -> str:
     return str(device)
 
 
+@contextlib.contextmanager
+def world_of_one(device):
+    """A process group of one rank on ``device``'s backend (NCCL on the
+    card, gloo on the CPU; an in-process store: no address, no port) for
+    the block, unless one stands already; closed after the block if it
+    was opened here."""
+    device = torch.device(device)
+    if dist.is_initialized():
+        yield
+        return
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def launch_mesh(device: torch.device):
+    """The reference's choice: the host mesh in a world of 1, the
+    production mesh in a world of 256 (512: two pods); any other world
+    raises."""
+    world = dist.get_world_size()
+    if world == 1:
+        return mesh_lib.make_host_mesh(device.type)
+    if world in (256, 512):
+        return mesh_lib.make_production_mesh(multi_pod=world == 512,
+                                             device_type=device.type)
+    raise ValueError(f"a world of {world} ranks: the launcher runs on the "
+                     f"host mesh (1 rank) or the production mesh (256 or "
+                     f"512)")
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Parse ``argv`` (the command line when None), train, print the
-    reference's lines and return {"config", "start_step", "steps": per
-    step {step, loss, grad_norm, lr, ..., wall_s}, "checkpoints": per save
-    {step, seconds, bytes, path}, "peak_bytes" (None off the card),
+    reference's lines and return {"config", "mesh", "start_step", "steps":
+    per step {step, loss, grad_norm, lr, ..., wall_s}, "checkpoints": per
+    save {step, seconds, bytes, path}, "peak_bytes" (None off the card),
     "params", "opt_state"}. Each step's metrics are read when it ends, so
-    its wall is the step's own."""
+    its wall is the step's own. The trees come back whole (plain
+    tensors), gathered before the world closes."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True, choices=configs.ALL_ARCHS)
     ap.add_argument("--steps", type=int, default=50)
@@ -76,9 +119,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
+    torch.empty(0, device=device)            # an unusable device raises here
     cfg = reduced(configs.get_config(args.arch), args.scale)
-    print(f"[train] {cfg.name} scale={args.scale} on {_describe(device)}",
-          flush=True)
+    with world_of_one(device):
+        return _run(args, cfg, device)
+
+
+def _run(args, cfg, device: torch.device) -> Dict[str, Any]:
+    mesh = launch_mesh(device)
+    print(f"[train] {cfg.name} scale={args.scale} on {_describe(device)}, "
+          f"{mesh_lib.describe(mesh)}", flush=True)
     resumed = ckpt.latest_step(args.ckpt_dir)   # step N resumes at N
     if resumed is not None:
         print(f"[train] resumed from step {resumed}", flush=True)
@@ -97,15 +147,17 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     out = loop.train(cfg, steps=args.steps, global_batch=args.global_batch,
                      seq_len=args.seq_len, ckpt_dir=args.ckpt_dir,
                      ckpt_every=args.ckpt_every, peak_lr=args.peak_lr,
-                     log_every=1, on_log=log, device=device)
+                     log_every=1, on_log=log, device=device, mesh=mesh)
     print("[train] done", flush=True)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
-    return {"config": cfg, "start_step": out["start_step"],
+    return {"config": cfg, "mesh": mesh_lib.describe(mesh),
+            "start_step": out["start_step"],
             "steps": [dict(m, wall_s=w)
                       for m, w in zip(out["history"], out["walls"])],
             "checkpoints": out["checkpoints"], "peak_bytes": peak,
-            "params": out["params"], "opt_state": out["opt_state"]}
+            "params": sh.gather(out["params"]),
+            "opt_state": sh.gather(out["opt_state"])}
 
 
 if __name__ == "__main__":

@@ -26,7 +26,6 @@ tolerance.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -34,6 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import reduce
+from repro_torch.utils.meshctx import (cached_constant, constrain,
+                                       current_mesh, gather_seq, is_dtensor,
+                                       on_shards, spec_of)
 
 Params = Dict[str, Any]
 
@@ -73,7 +75,7 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
-@functools.lru_cache(maxsize=None)
+@cached_constant()
 def _frequencies(head_dim: int, theta: float, device: torch.device
                  ) -> torch.Tensor:
     """rope_frequencies in f32 on ``device``, made once per (width, theta,
@@ -122,10 +124,42 @@ def attn_params_shape(d_model: int, dims: AttnDims):
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     """[B, S, Hkv, Dh] -> [B, S, Hkv*groups, Dh]: the ``groups`` copies of
     a KV head sit next to each other, so query head h reads KV head
-    h // groups."""
+    h // groups (on a mesh too, its kv heads split evenly or not at
+    all)."""
     if groups == 1:
         return k
-    return k.repeat_interleave(groups, dim=2)
+    heads = {0: 0, 2: 2}     # under a mesh: each shard repeats its own heads
+    return on_shards(lambda t: t.repeat_interleave(groups, dim=2), k, (k,),
+                     (heads,), heads)
+
+
+def split_heads(y: torch.Tensor, h: int, dh: int) -> torch.Tensor:
+    """[B, .., h * dh] -> [B, .., h, dh]. Under a mesh the feature dim is
+    first pinned to what the heads allow, [B@dp, .., h*dh@tp] where tp
+    divides h and [B@dp, ..] where it does not: a reshape cannot split a
+    sharded dim unevenly (smollm's 15 heads over a model axis of 16)."""
+    lead = tuple(y.shape[:-1])
+    logical = ("dp",) + (None,) * (len(lead) - 1)
+    mesh = current_mesh()
+    if mesh is not None:
+        heads = spec_of(mesh, lead + (h, dh), logical + ("tp", None))[-2]
+        y = constrain(y, *logical, "tp" if heads is not None else None)
+    return y.reshape(*lead, h, dh)
+
+
+def merge_heads(y: torch.Tensor) -> torch.Tensor:
+    """[B, .., h, dh] -> [B, .., h * dh], under a mesh pinned as
+    ``split_heads`` pins its input, so that the gradient coming back (split
+    over the feature dim by the next product) is regathered where the
+    heads do not divide before the reshape's backward splits it."""
+    lead, h, dh = tuple(y.shape[:-2]), y.shape[-2], y.shape[-1]
+    out = y.reshape(*lead, h * dh)
+    mesh = current_mesh()
+    if mesh is None:
+        return out
+    logical = ("dp",) + (None,) * (len(lead) - 1)
+    heads = spec_of(mesh, lead + (h, dh), logical + ("tp", None))[-2]
+    return constrain(out, *logical, "tp" if heads is not None else None)
 
 
 def _in_dtype(value: float, dtype: torch.dtype) -> float:
@@ -276,10 +310,18 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       ) -> torch.Tensor:
     """The reference's ``chunked_attention``: with ``kv_valid_len`` its
     decode path (the forward core alone), without it ``flash_attention``
-    (the same forward, and a backward)."""
+    (the same forward, and a backward). Under a mesh it runs on each
+    shard's own batch rows and heads."""
+    heads = {0: 0, 2: 2}
     if kv_valid_len is None:
-        return flash_attention(q, k, v, causal, q_offset, chunk)
-    return _flash_fwd_core(q, k, v, causal, q_offset, chunk, kv_valid_len)[0]
+        return on_shards(
+            lambda q_, k_, v_: flash_attention(q_, k_, v_, causal, q_offset,
+                                               chunk),
+            q, (q, k, v), (heads,) * 3, heads)
+    return on_shards(
+        lambda q_, k_, v_, n_: _flash_fwd_core(q_, k_, v_, causal, q_offset,
+                                               chunk, n_)[0],
+        q, (q, k, v, kv_valid_len), (heads,) * 3 + ({0: 0},), heads)
 
 
 def gqa_attention(params: Params, x: torch.Tensor, dims: AttnDims, *,
@@ -287,20 +329,27 @@ def gqa_attention(params: Params, x: torch.Tensor, dims: AttnDims, *,
                   causal: bool = True, rope_theta: float = 1e4,
                   chunk: int = 512, use_rope: bool = True) -> torch.Tensor:
     """Self-attention over a full sequence (train / prefill)."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     h, kv, dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q = (x @ params["wq"]).reshape(b, s, h, dh)
-    k = (x @ params["wk"]).reshape(b, s, kv, dh)
-    v = (x @ params["wv"]).reshape(b, s, kv, dh)
+    x = gather_seq(x)
+    # ZeRO-3: storage is fsdp-sharded; the (small) weights are gathered for
+    # compute so that activations keep their batch sharding.
+    wq = constrain(params["wq"], None, "tp")
+    wk = constrain(params["wk"], None, "tp")
+    wv = constrain(params["wv"], None, "tp")
+    q = constrain(split_heads(x @ wq, h, dh), "dp", None, "tp", None)
+    k = constrain(split_heads(x @ wk, kv, dh), "dp", None, "tp", None)
+    v = constrain(split_heads(x @ wv, kv, dh), "dp", None, "tp", None)
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
     k = _repeat_kv(k, h // kv)
     v = _repeat_kv(v, h // kv)
     out = chunked_attention(q, k, v, causal=causal, chunk=chunk)
-    return out.reshape(b, s, h * dh) @ params["wo"]
+    wo = constrain(params["wo"], "tp", None)
+    return constrain(merge_heads(out) @ wo, "dp", "sp", None)
 
 
 def gqa_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
@@ -321,9 +370,12 @@ def gqa_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
         raise ValueError(f"decode position {pos} outside the cache's "
                          f"{s_max} slots")
     h, kv, dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
-    q = (x @ params["wq"]).reshape(b, 1, h, dh)
-    k = (x @ params["wk"]).reshape(b, 1, kv, dh)
-    v = (x @ params["wv"]).reshape(b, 1, kv, dh)
+    wq = constrain(params["wq"], None, "tp")
+    wk = constrain(params["wk"], None, "tp")
+    wv = constrain(params["wv"], None, "tp")
+    q = split_heads(x @ wq, h, dh)
+    k = split_heads(x @ wk, kv, dh)
+    v = split_heads(x @ wv, kv, dh)
     if use_rope:
         posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q = apply_rope(q, posv, rope_theta)
@@ -335,23 +387,27 @@ def gqa_decode(params: Params, x: torch.Tensor, cache_k: torch.Tensor,
     valid = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
     out = chunked_attention(q, kk, vv, causal=False, chunk=chunk,
                             kv_valid_len=valid)
-    return out.reshape(b, 1, h * dh) @ params["wo"], cache_k, cache_v
+    wo = constrain(params["wo"], "tp", None)
+    return merge_heads(out) @ wo, cache_k, cache_v
 
 
 def cross_attention(params: Params, x: torch.Tensor, enc: torch.Tensor,
                     dims: AttnDims, chunk: int = 512) -> torch.Tensor:
     """Encoder-decoder cross attention (whisper). x: [B,S,d], enc: [B,T,d];
     non-causal over all T (the last KV chunk padded and masked)."""
-    b, s, _ = x.shape
-    t = enc.shape[1]
     h, kv, dh = dims.num_heads, dims.num_kv_heads, dims.head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, dh)
-    k = (enc @ params["wk"]).reshape(b, t, kv, dh)
-    v = (enc @ params["wv"]).reshape(b, t, kv, dh)
+    x, enc = gather_seq(x), gather_seq(enc)
+    q = split_heads(x @ constrain(params["wq"], None, "tp"), h, dh)
+    k = split_heads(enc @ constrain(params["wk"], None, "tp"), kv, dh)
+    v = split_heads(enc @ constrain(params["wv"], None, "tp"), kv, dh)
     k = _repeat_kv(k, h // kv)
     v = _repeat_kv(v, h // kv)
     out = chunked_attention(q, k, v, causal=False, chunk=chunk)
-    return out.reshape(b, s, h * dh) @ params["wo"]
+    out = merge_heads(out) @ constrain(params["wo"], "tp", None)
+    # Pinned like the self-attention's output (the reference leaves this
+    # one to GSPMD): unpinned, its gradient arrives split over batch and
+    # sequence, and the weight gradient's product would flatten the two.
+    return constrain(out, "dp", "sp", None)
 
 
 # ---------------------------------------------------------------------------
@@ -388,10 +444,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def swiglu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    x = gather_seq(x)
     if "wg" not in params:  # 2-matrix GELU MLP (starcoder2, whisper)
-        return gelu(x @ params["wi"]) @ params["wo"]
-    gate = silu(x @ params["wg"])
-    return ((x @ params["wi"]) * gate) @ params["wo"]
+        wi = constrain(params["wi"], None, "tp")
+        wo = constrain(params["wo"], "tp", None)
+        hidden = gelu(constrain(x @ wi, "dp", None, "tp"))
+        return constrain(hidden @ wo, "dp", None, None)
+    wi = constrain(params["wi"], None, "tp")
+    wg = constrain(params["wg"], None, "tp")
+    wo = constrain(params["wo"], "tp", None)
+    gate = silu(constrain(x @ wg, "dp", None, "tp"))
+    hidden = constrain(x @ wi, "dp", None, "tp") * gate
+    return constrain(hidden @ wo, "dp", "sp", None)
 
 
 # ---------------------------------------------------------------------------
@@ -400,8 +464,36 @@ def swiglu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``table``'s rows by ``tokens``; the table's gradient sums repeated
-    tokens in a fixed order (``reduce.gather_rows``)."""
-    return reduce.gather_rows(table, tokens)
+    tokens in a fixed order (``reduce.gather_rows``). A DTensor table is
+    gathered over its vocab dim first (as every weight is before use)
+    and each shard looks up its own tokens; its gradient is then a sum
+    over the shards that split the tokens."""
+    if not is_dtensor(table):
+        return reduce.gather_rows(table, tokens)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    table = table.redistribute(mesh, [
+        p if p.is_shard() and p.dim == 1 else Replicate()
+        for p in table.placements])
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    tok_pl = [p if p.is_shard() and p.dim == 0 else Replicate()
+              for p in tokens.placements]
+    out_pl, grad_pl = [], []
+    for kp, tp in zip(tok_pl, table.placements):
+        if kp.is_shard() and tp.is_shard():
+            raise ValueError("one mesh axis splits both the tokens and the "
+                             "embedding width")
+        out_pl.append(kp if kp.is_shard() else
+                      Shard(tokens.ndim) if tp.is_shard() else Replicate())
+        grad_pl.append(Partial() if kp.is_shard() else tp)
+    return local_map(lambda tok, tab: reduce.gather_rows(tab, tok),
+                     out_placements=out_pl,
+                     in_placements=(tok_pl, table.placements),
+                     in_grad_placements=(tok_pl, grad_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(tokens, table)
 
 
 def logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

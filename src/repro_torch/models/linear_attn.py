@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers
+from repro_torch.utils.meshctx import constrain, on_shards
 
 Params = Dict[str, torch.Tensor]
 
@@ -74,7 +75,17 @@ def chunked_linear_attention(q: torch.Tensor, k: torch.Tensor,
     Returns (y f32[B, T, H, dv], final state f32[B, H, dk, dv]).
 
     Inputs are sliced per chunk from the [B, T, H, *] layout, so a
-    broadcast (expanded) input is materialised one chunk at a time."""
+    broadcast (expanded) input is materialised one chunk at a time. Under
+    a mesh it runs on each shard's own batch rows and heads."""
+    heads, state = {0: 0, 2: 2}, {0: 0, 2: 1}
+    return on_shards(
+        lambda q_, k_, v_, w_, u_, s_: _chunked_linear_attention(
+            q_, k_, v_, w_, u_, s_, chunk), q, (q, k, v, log_w, u, s0),
+        (heads,) * 4 + (None if u is None else {2: 0},
+                        None if s0 is None else state), (heads, state))
+
+
+def _chunked_linear_attention(q, k, v, log_w, u, s0, chunk):
     b, t, h, dk = q.shape
     dv = v.shape[-1]
     c = min(chunk, t)
@@ -118,7 +129,16 @@ def linear_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           u: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """O(1) decode step. q/k/log_w: [B, H, dk]; v: [B, H, dv];
-    s: [B, H, dk, dv]. Returns (y [B, H, dv], new state)."""
+    s: [B, H, dk, dv]. Returns (y [B, H, dv], new state). Under a mesh it
+    runs on each shard's own batch rows and heads."""
+    heads = {0: 0, 1: 1}
+    return on_shards(
+        lambda q_, k_, v_, w_, s_, u_: _linear_attention_step(
+            q_, k_, v_, w_, s_, u_), q, (q, k, v, log_w, s, u),
+        (heads,) * 5 + (None if u is None else {1: 0},), (heads, heads))
+
+
+def _linear_attention_step(q, k, v, log_w, s, u):
     kv = torch.einsum("bhd,bhv->bhdv", k, v)
     if u is not None:
         read = s + u[None, :, :, None] * kv
@@ -162,7 +182,13 @@ def mamba2_params_shape(dims: Mamba2Dims):
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: [B, T, C], w: [W, C]. The taps add in
     the reference's order (Python's ``sum`` from tap 0), each product and
-    partial sum rounded to the inputs' dtype."""
+    partial sum rounded to the inputs' dtype. Under a mesh it runs on
+    each shard's own batch rows and channels (the whole sequence)."""
+    rows = {0: 0, 2: 2}
+    return on_shards(_causal_conv_local, x, (x, w), (rows, {2: 1}), rows)
+
+
+def _causal_conv_local(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     width = w.shape[0]
     xp = torch.nn.functional.pad(x, (0, 0, width - 1, 0))
     out = xp[:, 0:x.shape[1], :] * w[0][None, None, :]
@@ -183,7 +209,8 @@ def mamba2_block(params: Params, x: torch.Tensor, dims: Mamba2Dims, *,
     b, t, _ = x.shape
     di, hs, dk = dims.d_inner, dims.num_heads, dims.d_state
     hd = dims.head_dim
-    z, xin, bmat, cmat, dt = _split(x @ params["in_proj"], dims)
+    z, xin, bmat, cmat, dt = _split(
+        x @ constrain(params["in_proj"], None, None), dims)
     xbc = _causal_conv(torch.cat([xin, bmat, cmat], -1), params["conv_w"])
     xbc = layers.silu(xbc)
     xin, bmat, cmat = torch.split(xbc, [di, dk, dk], dim=-1)
@@ -198,10 +225,10 @@ def mamba2_block(params: Params, x: torch.Tensor, dims: Mamba2Dims, *,
     y, _ = chunked_linear_attention(q, k, v, lw, chunk=chunk)
     y = y + params["d_skip"].float()[None, None, :, None] * \
         xin.reshape(b, t, hs, hd).float()
-    y = y.reshape(b, t, di)
+    y = layers.merge_heads(y)
     y = y * layers.silu(z.float())
     y = layers.rmsnorm(y, params["norm_scale"])
-    return _f32mm(y, params["out_proj"]).to(x.dtype)
+    return _f32mm(y, constrain(params["out_proj"], None, None)).to(x.dtype)
 
 
 def mamba2_decode(params: Params, x: torch.Tensor,
@@ -234,9 +261,9 @@ def mamba2_decode(params: Params, x: torch.Tensor,
     y, s_new = linear_attention_step(q, k, v, lw, state["ssm"])
     y = y + params["d_skip"].float()[None, :, None] * \
         xin.reshape(b, hs, hd).float()
-    y = y.reshape(b, di) * layers.silu(z.float())
+    y = layers.merge_heads(y) * layers.silu(z.float())
     y = layers.rmsnorm(y, params["norm_scale"])
-    out = _f32mm(y, params["out_proj"]).to(x.dtype)[:, None, :]
+    out = _pinned(_f32mm(y, params["out_proj"]).to(x.dtype))[:, None, :]
     return out, {"ssm": s_new, "conv": conv_buf[:, 1:, :]}
 
 
@@ -287,35 +314,47 @@ def _ddecay(params: Params, xw: torch.Tensor) -> torch.Tensor:
     return -torch.exp(params["w0"].float() + lora.float())
 
 
+def _pinned(out: torch.Tensor) -> torch.Tensor:
+    """A mixer's output pinned to [B@dp, ..] (the reference leaves it to
+    GSPMD): its product with a split weight is a partial sum, which
+    DTensor would otherwise reduce-scatter onto the sequence dim, where
+    the next block's products would flatten two split dims into one, or
+    leave partial where the residual add cannot take it."""
+    return constrain(out, "dp", *(None,) * (out.ndim - 1))
+
+
 def rwkv6_time_mix(params: Params, x: torch.Tensor, dims: RWKV6Dims, *,
                    chunk: int = 64) -> torch.Tensor:
-    b, t, d = x.shape
     h, hd = dims.num_heads, dims.head_dim
     xs = _token_shift(x)
 
     def mix(mu):
         return x + (xs - x) * params[mu][None, None, :]
 
-    r = (mix("mu_r") @ params["wr"]).reshape(b, t, h, hd)
-    k = (mix("mu_k") @ params["wk"]).reshape(b, t, h, hd)
-    v = (mix("mu_v") @ params["wv"]).reshape(b, t, h, hd)
-    g = layers.silu(mix("mu_g") @ params["wg"])
-    log_w = _ddecay(params, mix("mu_w")).reshape(b, t, h, hd)
+    r = layers.split_heads(mix("mu_r") @ constrain(params["wr"], None, "tp"),
+                           h, hd)
+    k = layers.split_heads(mix("mu_k") @ constrain(params["wk"], None, "tp"),
+                           h, hd)
+    v = layers.split_heads(mix("mu_v") @ constrain(params["wv"], None, "tp"),
+                           h, hd)
+    g = layers.silu(mix("mu_g") @ constrain(params["wg"], None, "tp"))
+    log_w = layers.split_heads(_ddecay(params, mix("mu_w")), h, hd)
 
     y, _ = chunked_linear_attention(
         r, k, v, log_w, u=params["bonus_u"].float(), chunk=chunk)
-    y = y.reshape(b, t, d)
+    y = layers.merge_heads(y)
     y = layers.rmsnorm(y, params["ln_x_scale"])
-    return _f32mm(y * g, params["wo"]).to(x.dtype)
+    return _pinned(_f32mm(y * g, constrain(params["wo"], "tp", None)
+                          ).to(x.dtype))
 
 
 def rwkv6_channel_mix(params: Params, x: torch.Tensor) -> torch.Tensor:
     xs = _token_shift(x)
     xk = x + (xs - x) * params["mu_ck"][None, None, :]
     xr = x + (xs - x) * params["mu_cr"][None, None, :]
-    kk = torch.relu(xk @ params["ck"]).square()
-    return (layers.sigmoid(xr @ params["cr"])
-            * (kk @ params["cv"])).to(x.dtype)
+    kk = torch.relu(xk @ constrain(params["ck"], None, "tp")).square()
+    return _pinned((layers.sigmoid(xr @ constrain(params["cr"], None, "tp"))
+                    * (kk @ constrain(params["cv"], "tp", None))).to(x.dtype))
 
 
 def rwkv6_time_mix_step(params: Params, x: torch.Tensor,
@@ -324,23 +363,22 @@ def rwkv6_time_mix_step(params: Params, x: torch.Tensor,
     """Decode step. x: [B, d]; state: {"shift": [B, d], "wkv": [B,H,hd,hd]}.
     The new shift is x itself, in x's dtype: after an f32 zero state the
     next step's mixes run in bf16, as in the reference."""
-    b, d = x.shape
     h, hd = dims.num_heads, dims.head_dim
     xs = state["shift"]
 
     def mix(mu):       # f32 while the shift state is (the first step)
         return x + (xs - x) * params[mu][None, :]
 
-    r = _f32mm(mix("mu_r"), params["wr"]).reshape(b, h, hd)
-    k = _f32mm(mix("mu_k"), params["wk"]).reshape(b, h, hd)
-    v = _f32mm(mix("mu_v"), params["wv"]).reshape(b, h, hd)
+    r = layers.split_heads(_f32mm(mix("mu_r"), params["wr"]), h, hd)
+    k = layers.split_heads(_f32mm(mix("mu_k"), params["wk"]), h, hd)
+    v = layers.split_heads(_f32mm(mix("mu_v"), params["wv"]), h, hd)
     g = layers.silu(_f32mm(mix("mu_g"), params["wg"]))
-    log_w = _ddecay(params, mix("mu_w")).reshape(b, h, hd)
+    log_w = layers.split_heads(_ddecay(params, mix("mu_w")), h, hd)
     y, s_new = linear_attention_step(
         r.float(), k.float(), v.float(), log_w, state["wkv"],
         u=params["bonus_u"].float())
-    y = layers.rmsnorm(y.reshape(b, d), params["ln_x_scale"])
-    out = _f32mm(y * g, params["wo"]).to(x.dtype)
+    y = layers.rmsnorm(layers.merge_heads(y), params["ln_x_scale"])
+    out = _pinned(_f32mm(y * g, params["wo"]).to(x.dtype))
     return out, {"shift": x, "wkv": s_new}
 
 
@@ -351,6 +389,6 @@ def rwkv6_channel_mix_step(params: Params, x: torch.Tensor,
     xk = x + (xs - x) * params["mu_ck"][None, :]
     xr = x + (xs - x) * params["mu_cr"][None, :]
     kk = torch.relu(_f32mm(xk, params["ck"])).square()
-    out = (layers.sigmoid(_f32mm(xr, params["cr"]))
-           * _f32mm(kk, params["cv"])).to(x.dtype)
+    out = _pinned((layers.sigmoid(_f32mm(xr, params["cr"]))
+                   * _f32mm(kk, params["cv"])).to(x.dtype))
     return out, {"shift": x}

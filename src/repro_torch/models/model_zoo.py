@@ -14,13 +14,17 @@ leaf for leaf (``repro_torch.convert.lm_params``). Storage is f32, bf16
 for kimi; the blocks compute in bf16, the logits in f32.
 
 Training: ``loss_fn`` (``chunked_ce_loss`` over sequence chunks, plus
-0.01 x the MoE's aux loss) over ``forward(remat=True)``. Not ported
-here: the dry-run's ``input_specs`` / ``abstract_params`` (ROADMAP
-Queue 1 item 4.5).
+0.01 x the MoE's aux loss) over ``forward(remat=True)``. The dry run's
+stand-ins: ``abstract_params`` and ``input_specs`` give every tree's
+shapes and dtypes as ``meta`` tensors (nothing allocated).
+
+Under a mesh (``utils.meshctx.use_mesh``) the parameters and inputs are
+DTensors and ``constrain`` pins activations at the reference's places;
+the CE chunk's vocab-sharded logits then pick each label on the shard
+that holds it.
 """
 from __future__ import annotations
 
-import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -29,6 +33,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers, linear_attn, moe as moe_lib
 from repro_torch.models import transformer
+from repro_torch.utils.meshctx import (cached_constant, constrain, gather_seq,
+                                      is_dtensor)
 
 Params = Dict[str, Any]
 COMPUTE = torch.bfloat16
@@ -119,6 +125,19 @@ def param_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.name.startswith("kimi") else torch.float32
 
 
+def _tree_of(shapes, leaf):
+    return {k: _tree_of(v, leaf) if isinstance(v, dict) else leaf(v)
+            for k, v in shapes.items()}
+
+
+def abstract_params(cfg: ArchConfig) -> Params:
+    """The parameter tree as ``meta`` tensors: its shapes and dtypes,
+    nothing allocated (the dry run's stand-in)."""
+    dt = param_dtype(cfg)
+    return _tree_of(param_shapes(cfg), lambda s: torch.empty(
+        s, dtype=dt, device="meta"))
+
+
 def leaves(tree, prefix: Tuple[str, ...] = ()):
     """(path, leaf) pairs of a nested dict in sorted key order, the order
     in which the reference flattens its trees."""
@@ -179,7 +198,7 @@ def _sinusoidal(s: int, d: int) -> np.ndarray:
                           axis=1).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@cached_constant(maxsize=16)
 def _positions(s: int, d: int, dtype: torch.dtype, device: torch.device
                ) -> torch.Tensor:
     """_sinusoidal(s, d) in ``dtype`` on ``device``, made once: a decode
@@ -214,7 +233,8 @@ def _embed_inputs(cfg: ArchConfig, params: Params,
     The VLM's patches go through the connector and take the sequence's
     first P positions (weight 0); the text's last P tokens drop off. The
     audio family's "frames" go through ``encode_audio``."""
-    x = layers.embed(batch["tokens"], params["embed"]).to(COMPUTE)
+    x = constrain(layers.embed(batch["tokens"], params["embed"]).to(COMPUTE),
+                  "dp", "sp", None)
     weights = enc = None
     if cfg.family == "vlm":
         patches = batch["patches"].to(COMPUTE)                # [B, P, Dv]
@@ -270,14 +290,76 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     return x, weights, metrics
 
 
+def _vocab_axes(logits) -> list:
+    """The mesh dims of more than one rank that split a DTensor's last
+    (vocab) dim; none for a plain tensor."""
+    if not is_dtensor(logits):
+        return []
+    mesh = logits.device_mesh
+    return [i for i, p in enumerate(logits.placements)
+            if p.is_shard() and p.dim == logits.ndim - 1 and mesh.size(i) > 1]
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last dim. With the vocab split over ranks it is
+    the max, then the sum of exp(logits - max) over the shards (a partial
+    sum) and its log: torch.logsumexp itself would gather the whole
+    vocab on every rank."""
+    if not _vocab_axes(logits):
+        return torch.logsumexp(logits, dim=-1)
+    # each reduction pinned to [B@dp, c]: left to DTensor, the partial sum
+    # is reduce-scattered onto the batch dim and the gradient follows it.
+    # The max is a constant shift (the gradient is the softmax either way).
+    m = constrain(logits.detach().amax(dim=-1), "dp", None)
+    total = constrain(torch.exp(logits - m[..., None]).sum(dim=-1), "dp", None)
+    return torch.log(total) + m
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits[..., label]: [B, c, V], [B, c] -> [B, c]. On a DTensor
+    whose vocab dim is split, each shard picks the labels that fall in
+    its slice (0 elsewhere) and the shards' picks are summed."""
+    if not is_dtensor(logits):
+        return logits.gather(-1, labels[..., None].long())[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    vocab_axes = [i for i, p in enumerate(logits.placements)
+                  if p.is_shard() and p.dim == 2]
+    coord = mesh.get_coordinate()
+    row = [p if p.is_shard() and p.dim == 0 else Replicate()
+           for p in logits.placements]
+    out = [Partial() if i in vocab_axes else row[i]
+           for i in range(mesh.ndim)]
+
+    def pick(local, lab):
+        width = local.shape[-1]
+        shard = 0
+        for i in vocab_axes:           # major to minor, the mesh's order
+            shard = shard * mesh.size(i) + coord[i]
+        idx = lab.long() - shard * width
+        inside = (idx >= 0) & (idx < width)
+        got = local.gather(-1, idx.clamp(0, width - 1)[..., None])[..., 0]
+        return torch.where(inside, got, 0.0)
+
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    return local_map(pick, out_placements=out,
+                     in_placements=(logits.placements, tuple(row)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         logits, labels)
+
+
 def _ce_chunk(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
               weights: torch.Tensor) -> torch.Tensor:
     """One chunk's weighted NLL sum: x [B, c, d] bf16 against the bf16
     table [V, d] as an f32 product (exact f32 copies; the reference's
-    ``preferred_element_type=f32``), logits [B, c, V] f32."""
-    logits = x.float() @ table.float().T
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    ``preferred_element_type=f32``), logits [B, c, V] f32, pinned to
+    (dp, None, tp) under a mesh."""
+    logits = constrain(x.float() @ table.float().T, "dp", None, "tp")
+    lse = _logsumexp(logits)
+    gold = _gold(logits, labels)
     return ((lse - gold) * weights).sum()
 
 
@@ -291,6 +373,7 @@ def chunked_ce_loss(x: torch.Tensor, table: torch.Tensor,
     autograd each chunk is recomputed in the backward pass, so only one
     chunk's logits live at a time. x: [B, S, d], table: [V, d], labels:
     int [B, S], weights: f32 [B, S] or None (all 1)."""
+    x = gather_seq(x)
     b, s, _ = x.shape
     c = min(chunk, s)
     pad = (-s) % c
@@ -300,7 +383,9 @@ def chunked_ce_loss(x: torch.Tensor, table: torch.Tensor,
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
         labels = torch.nn.functional.pad(labels, (0, pad))
         weights = torch.nn.functional.pad(weights, (0, pad))
-    table_c = table.to(x.dtype)            # one cast, out of the loop
+    # one cast, out of the loop; under a mesh the vocab split over tp, as
+    # the logits are pinned (the reference lets GSPMD move the table so)
+    table_c = constrain(table.to(x.dtype), "tp", None)
     tot = cnt = torch.zeros((), device=x.device)
     for i in range(0, s + pad, c):
         xi, li, wi = x[:, i:i + c], labels[:, i:i + c], weights[:, i:i + c]
@@ -468,3 +553,35 @@ def decode_step(cfg: ArchConfig, params: Params, cache: Dict[str, Any],
         raise ValueError(cfg.family)
     x = layers.apply_norm(cfg.norm, x, params.get("final_norm"))
     return _f32_logits(x[:, 0], _out_table(cfg, params)), new_cache
+
+
+# ---------------------------------------------------------------------------
+# input_specs (dry-run stand-ins, nothing allocated)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, seq_len: int, global_batch: int,
+                kind: str) -> Dict[str, Any]:
+    """``meta`` stand-ins for every model input of a shape cell, the
+    reference's tree: train / prefill {"batch": {"tokens" i32[B, S]
+    (train: "labels" too), a VLM's "patches" / audio's "frames" bf16[B,
+    frontend_len, frontend_dim]}}; decode {"tokens" i32[B, 1], "cache"
+    (``make_cache``'s tree), "pos" i32[]}."""
+    b, s = global_batch, seq_len
+
+    def tok(shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+
+    if kind in ("train", "prefill"):
+        batch: Dict[str, Any] = {"tokens": tok((b, s))}
+        if kind == "train":
+            batch["labels"] = tok((b, s))
+        if cfg.family in ("vlm", "audio"):
+            batch["patches" if cfg.family == "vlm" else "frames"] = \
+                torch.empty((b, cfg.frontend_len, cfg.frontend_dim),
+                            dtype=COMPUTE, device="meta")
+        return {"batch": batch}
+    if kind == "decode":
+        return {"tokens": tok((b, 1)),
+                "cache": make_cache(cfg, b, s, device="meta"),
+                "pos": tok(())}
+    raise ValueError(kind)

@@ -20,6 +20,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers, linear_attn, moe as moe_lib
+from repro_torch.utils import meshctx
+from repro_torch.utils.meshctx import constrain
 
 Params = Dict[str, Any]
 
@@ -63,11 +65,14 @@ def layer(blocks: Params, l: int) -> Params:
 def remat_call(fn: Callable, remat: bool, *args):
     """``fn(*args)``; with ``remat`` under ``checkpoint(use_reentrant=
     False)``, so the backward pass recomputes ``fn``'s activations. The
-    recompute runs with ``linear_attn.LOGP_MAX`` off: the hook records a
-    chunk once, in the real forward."""
+    recompute runs with ``linear_attn.LOGP_MAX`` off (the hook records a
+    chunk once, in the real forward) and under the mesh context of the
+    forward (the backward may run on the autograd engine's own thread,
+    which does not see this thread's ``meshctx``)."""
     if not remat:
         return fn(*args)
     calls = []
+    mesh_state = meshctx.current_state()
 
     def body(*a):
         calls.append(None)
@@ -75,7 +80,8 @@ def remat_call(fn: Callable, remat: bool, *args):
             return fn(*a)
         hook, linear_attn.LOGP_MAX = linear_attn.LOGP_MAX, None
         try:
-            return fn(*a)
+            with meshctx.use_mesh(*mesh_state):
+                return fn(*a)
         finally:
             linear_attn.LOGP_MAX = hook
 
@@ -132,14 +138,14 @@ def attn_block_decode(cfg: ArchConfig, p: Params, x: torch.Tensor,
     new_cache = dict(cache, k=ck, v=cv)
     if enc_kv is not None:
         dims = attn_dims(cfg)
-        b = x.shape[0]
-        q = (_norm(cfg, p.get("cross_norm"), h) @ p["cross"]["wq"]).reshape(
-            b, 1, dims.num_heads, dims.head_dim)
+        q = layers.split_heads(_norm(cfg, p.get("cross_norm"), h)
+                               @ p["cross"]["wq"], dims.num_heads,
+                               dims.head_dim)
         groups = dims.num_heads // dims.num_kv_heads
         kk = layers._repeat_kv(enc_kv[0], groups)
         vv = layers._repeat_kv(enc_kv[1], groups)
         o = layers.chunked_attention(q, kk, vv, causal=False)
-        h = h + o.reshape(b, 1, dims.num_heads * dims.head_dim) \
+        h = h + layers.merge_heads(o) \
             @ p["cross"]["wo"]
     hn = _norm(cfg, p.get("mlp_norm"), h)
     if cfg.num_experts:
@@ -159,7 +165,8 @@ def dense_stack(cfg: ArchConfig, blocks: Params, x: torch.Tensor, *,
     (``cfg.num_layers`` of them). Metrics (the MoE's drop fraction and aux
     loss) are averaged over the layers."""
     def body(p, h):
-        return attn_block(cfg, p, h, causal=causal, chunk=chunk)
+        h, m = attn_block(cfg, p, h, causal=causal, chunk=chunk)
+        return constrain(h, "dp", "sp", None), m
 
     per_layer = []
     for l in range(cfg.num_layers):
@@ -230,7 +237,7 @@ def mamba_block_decode(cfg: ArchConfig, p: Params, x: torch.Tensor,
 def rwkv_stack(cfg: ArchConfig, blocks: Params, x: torch.Tensor, *,
                remat: bool = False, chunk: int = 64) -> torch.Tensor:
     def body(p, h):
-        return rwkv_block(cfg, p, h, chunk=chunk)
+        return constrain(rwkv_block(cfg, p, h, chunk=chunk), "dp", None, None)
 
     for l in range(cfg.num_layers):
         x = remat_call(body, remat, layer(blocks, l), x)
@@ -250,11 +257,14 @@ def zamba_stack(cfg: ArchConfig, params: Params, x: torch.Tensor, *,
 
     def group_body(group, shared, h):
         for l in range(g):
-            h = mamba_block(cfg, layer(group, l), h, chunk=chunk)
-        return attn_block(cfg, shared, h, causal=True, chunk=attn_chunk)[0]
+            h = constrain(mamba_block(cfg, layer(group, l), h, chunk=chunk),
+                          "dp", None, None)
+        h = attn_block(cfg, shared, h, causal=True, chunk=attn_chunk)[0]
+        return constrain(h, "dp", None, None)
 
     def tail_body(p, h):
-        return mamba_block(cfg, p, h, chunk=chunk)
+        return constrain(mamba_block(cfg, p, h, chunk=chunk),
+                         "dp", None, None)
 
     for gi in range(cfg.num_layers // g):
         x = remat_call(group_body, remat, layer(params["groups"], gi),

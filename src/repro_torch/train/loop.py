@@ -7,6 +7,13 @@ Contract (tests/test_torch_train.py): kill the loop at step K
 (``fail_at`` or the ``REPRO_FAIL_AT_STEP`` environment variable),
 restart, and the loss trajectory and the final parameters equal an
 uninterrupted run's bit for bit; checkpoints are atomic.
+
+With a ``mesh`` (a ``DeviceMesh``) the loop runs as the reference's
+launcher does under its mesh: parameters and optimizer state placed by
+``dist.sharding``'s rules, each step under ``use_mesh(mesh, sp=True)``,
+checkpoints de-sharded and restored to the same placements. On the
+(1, 1) host mesh every placement replicates and the run equals the
+loop without a mesh bit for bit.
 """
 from __future__ import annotations
 
@@ -18,7 +25,9 @@ from repro_torch import ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.synthetic import PipelineConfig, TokenPipeline
 from repro_torch.models import model_zoo
+from repro_torch.dist import sharding as sh
 from repro_torch.train import step as step_lib
+from repro_torch.utils import meshctx
 
 
 LogFn = Callable[[Dict[str, float], float], None]   # (row, wall seconds)
@@ -39,7 +48,7 @@ def train(cfg: ArchConfig, *, steps: int, global_batch: int, seq_len: int,
           fail_at: Optional[int] = None, log_every: int = 10,
           compress_grads: bool = False,
           on_log: Optional[LogFn] = None,
-          device="cuda") -> Dict[str, Any]:
+          device="cuda", mesh=None) -> Dict[str, Any]:
     """Train ``cfg`` from ``init_params(cfg, seed)`` on ``device`` for
     ``steps`` steps (resuming from the newest committed checkpoint in
     ``ckpt_dir``, at its ``extra["next_step"]``), checkpointing every
@@ -49,7 +58,9 @@ def train(cfg: ArchConfig, *, steps: int, global_batch: int, seq_len: int,
     previous row, checkpoint saves left out: with ``log_every=1`` each
     step's own wall). Returns {"history": the rows, "walls": their walls,
     "start_step", "checkpoints": per save {step, seconds, bytes, path},
-    "params", "opt_state", "seconds"}."""
+    "params", "opt_state", "seconds"}. With ``mesh`` (module docstring)
+    the trees returned are DTensors and each row's metrics are read
+    whole."""
     pipe = TokenPipeline(PipelineConfig(
         vocab_size=cfg.vocab_size, seq_len=seq_len,
         global_batch=global_batch, seed=seed), device=device)
@@ -58,10 +69,16 @@ def train(cfg: ArchConfig, *, steps: int, global_batch: int, seq_len: int,
 
     params = model_zoo.init_params(cfg, seed, device=device)
     opt_state = init_opt(params)
+    placed = None
+    if mesh is not None:
+        placed = (sh.param_shardings(params, mesh),
+                  sh.opt_shardings(opt_state, params, mesh))
+        params = sh.distribute(params, placed[0])
+        opt_state = sh.distribute(opt_state, placed[1])
     start_step = 0
     if ckpt.latest_step(ckpt_dir) is not None:
-        (params, opt_state), meta = ckpt.restore(ckpt_dir,
-                                                 (params, opt_state))
+        (params, opt_state), meta = ckpt.restore(
+            ckpt_dir, (params, opt_state), shardings=placed)
         start_step = int(meta["extra"]["next_step"])
 
     env_fail = os.environ.get("REPRO_FAIL_AT_STEP")
@@ -80,14 +97,21 @@ def train(cfg: ArchConfig, *, steps: int, global_batch: int, seq_len: int,
         saves.append({"step": at, "seconds": time.time() - t,
                       "bytes": _dir_bytes(path), "path": path})
 
+    def batch_at(s: int):
+        batch = pipe.get_batch(s)
+        if mesh is None:
+            return batch
+        return sh.distribute(batch, sh.batch_shardings(batch, mesh))
+
     t0 = t_mark = time.time()
     for s in range(start_step, steps):
         if fail_at is not None and s == fail_at:
             raise SimulatedFailure(f"injected failure at step {s}")
-        params, opt_state, metrics = train_step_fn(params, opt_state,
-                                                   pipe.get_batch(s))
+        with meshctx.use_mesh(mesh, sp=True):
+            params, opt_state, metrics = train_step_fn(params, opt_state,
+                                                       batch_at(s))
         if s % log_every == 0 or s == steps - 1:
-            m = {k: float(v) for k, v in metrics.items()}
+            m = {k: float(v) for k, v in sh.gather(metrics).items()}
             m["step"] = s
             history.append(m)
             walls.append(time.time() - t_mark)

@@ -1,10 +1,15 @@
-"""The train step (a port of the reference's ``repro/train/step.py``):
-the loss and its gradients, the optional int8 error-feedback roundtrip,
-a clip by the global norm, then the schedule and the optimizer's update.
+"""The step factories (a port of the reference's ``repro/train/step.py``):
+the train step (the loss and its gradients, the optional int8
+error-feedback roundtrip, a clip by the global norm, then the schedule
+and the optimizer's update), the prefill step and the one-token serve
+step the dry run traces.
 
 Parameters and optimizer state are the port's nested dicts of tensors;
 ``train_step`` is functional (it returns new trees) and makes no host
-sync: its metrics stay device scalars until a caller reads them.
+sync: its metrics stay device scalars until a caller reads them. Under
+a mesh (``utils.meshctx.use_mesh``) the trees hold DTensors and each
+step runs in ``meshctx.step_scope()``, where the plain tensors the model
+builds count as replicated.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from repro_torch.optim import (adafactor_init, adafactor_update, adamw_init,
                                adamw_update, grad_compress,
                                schedule as sched_lib)
 from repro_torch.optim.tree import tree_leaves, tree_map, unzip
+from repro_torch.utils import meshctx
 
 Tree = Any
 
@@ -86,6 +92,11 @@ def make_train_step(cfg: ArchConfig, *, optimizer: Optional[str] = None,
 
     def train_step(params: Tree, opt_state: Tree,
                    batch: Dict[str, torch.Tensor]):
+        with meshctx.step_scope():
+            return _step(params, opt_state, batch)
+
+    def _step(params: Tree, opt_state: Tree,
+              batch: Dict[str, torch.Tensor]):
         loss, metrics, grads = grads_of(cfg, params, batch, remat=remat,
                                         attn_chunk=attn_chunk)
         if compress_grads:
@@ -110,3 +121,21 @@ def make_train_step(cfg: ArchConfig, *, optimizer: Optional[str] = None,
 
     return init_opt_state, train_step
 
+
+def make_prefill_step(cfg: ArchConfig, attn_chunk: int = 512) -> Callable:
+    """``prefill_step(params, batch)`` -> the last position's logits."""
+    def prefill_step(params: Tree, batch: Dict[str, torch.Tensor]):
+        with meshctx.step_scope():
+            return model_zoo.prefill(cfg, params, batch, chunk=attn_chunk)
+    return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig) -> Callable:
+    """``serve_step(params, cache, tokens, pos)`` -> (logits, cache): one
+    decode token (``pos`` a Python int, as ``model_zoo.decode_step``
+    takes it)."""
+    def serve_step(params: Tree, cache: Tree, tokens: torch.Tensor,
+                   pos: int):
+        with meshctx.step_scope():
+            return model_zoo.decode_step(cfg, params, cache, tokens, pos)
+    return serve_step

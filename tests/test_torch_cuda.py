@@ -1253,3 +1253,89 @@ def test_training_restart_on_the_card_is_bit_exact(dev, tmp_path):
             for (path, a), (_, b) in zip(model_zoo.leaves(other[key]),
                                          model_zoo.leaves(ref[key])):
                 assert torch.equal(a, b), (key, path)
+
+
+# The LM's multi-device tooling on the card: each check opens a world of
+# one NCCL rank, so it runs in a process of its own (the test process
+# keeps no default process group).
+_HOST_MESH = """
+import json, sys, torch
+from repro_torch import ckpt, configs
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import train as launch
+from repro_torch.models import model_zoo
+from repro_torch.train import train
+root, job = sys.argv[1], sys.argv[2]
+cfg, b, s = launch.reduced(configs.get_config("smollm-360m"), 0.1), 8, 128
+out = {}
+if job == "launcher":
+    plain = train(cfg, steps=6, global_batch=b, seq_len=s, ckpt_dir=root + "/p",
+                  ckpt_every=3, peak_lr=1e-3, log_every=1, device="cuda")
+    args = ["--arch", "smollm-360m", "--steps", "6", "--global-batch", str(b),
+            "--seq-len", str(s), "--ckpt-every", "3", "--peak-lr", "1e-3",
+            "--scale", "0.1", "--device", "cuda", "--ckpt-dir", root + "/m"]
+    res = launch.main(args)
+    pl, ml = dict(model_zoo.leaves(plain["params"])), dict(model_zoo.leaves(res["params"]))
+    out = {"mesh": res["mesh"],
+           "losses_equal": [m["loss"] for m in plain["history"]]
+                           == [r["loss"] for r in res["steps"]],
+           "params_equal": all(torch.equal(pl[k], ml[k]) for k in pl)}
+else:
+    tree = {"w": torch.randn(6, 10, device="cuda"),
+            "h": torch.randn(4, 3, device="cuda").to(torch.bfloat16),
+            "step": torch.tensor(7, dtype=torch.int32, device="cuda")}
+    ckpt.save(root + "/c", 1, tree)
+    with launch.world_of_one("cuda"):
+        mesh = mesh_lib.make_host_mesh("cuda")
+        back, meta = ckpt.restore(root + "/c", tree, shardings=mesh)
+        out = {"mesh": mesh_lib.describe(mesh),
+               "equal": all(torch.equal(back[k].full_tensor(), tree[k])
+                            for k in tree),
+               "dtypes": all(back[k].dtype == tree[k].dtype for k in tree),
+               "placements": sorted({str(v.placements) for v in back.values()})}
+        ckpt.save(root + "/d", 2, back)
+        _, meta2 = ckpt.restore(root + "/d", tree)
+        out["saved_placements"] = meta2["shardings"]
+print(json.dumps(out))
+"""
+
+
+def _host_mesh_job(job, tmp_path):
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-c", _HOST_MESH, str(tmp_path),
+                           job], env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    import json
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.gpu
+def test_launcher_on_the_host_mesh_on_the_card_equals_the_plain_loop(
+        dev, tmp_path):
+    """The launcher in a world of one NCCL rank runs on the (1, 1) host
+    mesh: 6 steps of smollm-360m at ``--scale 0.1`` (B 8 x S 128), its
+    losses and final parameters equal the loop's without a mesh bit for
+    bit."""
+    out = _host_mesh_job("launcher", tmp_path)
+    assert out["mesh"] == "mesh(1, 1) axes=('data', 'model')"
+    assert out["losses_equal"] and out["params_equal"], out
+
+
+@pytest.mark.gpu
+def test_restore_onto_the_host_mesh_on_the_card(dev, tmp_path):
+    """A checkpoint of card tensors (f32, bf16, int32) restored through
+    ``restore(shardings=<the host mesh>)``: DTensors on the (1, 1) mesh,
+    replicated, bit-equal and of the saved dtypes; saved again, each
+    leaf's placement record names the mesh's axes and sizes."""
+    out = _host_mesh_job("restore", tmp_path)
+    assert out["equal"] and out["dtypes"], out
+    assert out["placements"] == ["(Replicate(), Replicate())"], out
+    for key, spec in (("w", [None, None]), ("h", [None, None]),
+                      ("step", [])):
+        assert out["saved_placements"][key] == {
+            "spec": spec, "mesh_axes": ["data", "model"],
+            "mesh_shape": [1, 1]}, out

@@ -41,7 +41,9 @@ def test_port_imports_without_jax_or_reference():
     for module in ("optim.adamw", "optim.schedule", "optim.grad_compress",
                    "train.step", "train.loop", "ckpt.checkpoint",
                    "ckpt.msgpack_lite", "data.synthetic", "launch.train",
-                   "examples.train_lm"):
+                   "examples.train_lm", "utils", "utils.meshctx",
+                   "utils.opcount", "launch.dryrun", "launch.mesh",
+                   "dist.sharding"):
         assert f"repro_torch.{module}" in out.stdout, module
 
 
